@@ -1,11 +1,12 @@
-"""dextractor_tpu — a TPU-native lossless codec framework for PacBio sequencing data.
+"""dextractor_tpu — a GPU-accelerated lossless codec framework for PacBio
+sequencing data.
 
-A ground-up re-design of the capabilities of thegenemyers/DEXTRACTOR
-(reference mounted at /root/reference) for TPU hardware:
+A ground-up re-design of the capabilities of thegenemyers/DEXTRACTOR as a
+JAX program for an NVIDIA GPU:
 
-- ``ops``      JAX/XLA/Pallas kernels: 2-bit pack/unpack, 256-bin histograms,
+- ``ops``      JAX/XLA device code: 2-bit pack/unpack, 256-bin histograms,
                Huffman bitstream encode (prefix-sum + scatter) and decode
-               (batched token walk), run-length scans.
+               (one-lane-per-chain Pallas/Triton kernel), run-length scans.
 - ``codecs``   Codec orchestration: .dexta / .dexar (2-bit) and .dexqv
                (per-file adaptive Huffman x6 schemes + RLE + escapes).
 - ``formats``  Byte-exact container readers/writers and vectorized text

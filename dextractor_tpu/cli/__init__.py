@@ -19,6 +19,8 @@ def main(argv: list[str] | None = None) -> int:
         sys.stderr.write(f"usage: dextractor_tpu <tool> [args]\n  tools: {', '.join(TOOLS)}\n")
         return 1
     import importlib
+    from ._common import use_compile_cache
 
+    use_compile_cache()
     mod = importlib.import_module(f".{argv[0]}", __package__)
     return mod.main(argv[1:])

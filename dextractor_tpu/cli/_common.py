@@ -10,6 +10,20 @@ from ..utils.errors import DextractorError
 from ..utils.paths import path_to, root, catenate
 
 
+def use_compile_cache() -> None:
+    """Keep compiled device programs across runs: where
+    JAX_COMPILATION_CACHE_DIR is set JAX uses it as is; otherwise the fixed
+    ``<checkout>/.jax_cache``."""
+    if os.environ.get("JAX_COMPILATION_CACHE_DIR"):
+        return
+    import jax
+
+    checkout = os.path.dirname(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))
+    jax.config.update("jax_compilation_cache_dir",
+                      os.path.join(checkout, ".jax_cache"))
+
+
 def codec_tool(prog, usage, help_lines, in_suffix, out_suffix,
                encode_fn, flags_str="vki", int_opts=None, argv=None,
                pipe_ok=True):
@@ -22,6 +36,7 @@ def codec_tool(prog, usage, help_lines, in_suffix, out_suffix,
     """
     from ..utils.profiling import REPORTER
 
+    use_compile_cache()
     spec = ArgSpec(prog=prog, usage=usage, flags=flags_str,
                    int_opts=int_opts or {}, help_lines=help_lines)
     flags, opts, files = parse_flags(spec, argv if argv is not None else sys.argv[1:])

@@ -148,6 +148,9 @@ def _cell_from_bax(core, full, expr, want_qv, want_arrow) -> CellData:
 
 
 def main(argv=None) -> int:
+    from ._common import use_compile_cache
+
+    use_compile_cache()
     spec = ArgSpec(prog="dex2DB", usage=USAGE, flags="vlaq",
                    str_opts={"e": None, "f": None}, help_lines=HELP)
     flags, opts, files = parse_flags(spec, argv if argv is not None else sys.argv[1:])

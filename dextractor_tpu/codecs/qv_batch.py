@@ -1,4 +1,4 @@
-"""Batched (TPU-first) QV entry decode shared by the DB reader and the raw
+"""Batched device QV entry decode shared by the DB reader and the raw
 `.dexqv` container path.
 
 A .dexqv entry is five butted Huffman streams (QV.c:1381-1426); decoding a
@@ -81,11 +81,19 @@ def channel_rects(buf: np.ndarray, starts: np.ndarray, coffs: np.ndarray,
     return rect_del, tag_bytes, rect_ins, rect_mrg, rect_sub
 
 
+def pow2_words(span_bytes, slack: int) -> np.ndarray:
+    """Pow2 rectangle width in u32 words (at least 64) for streams of up
+    to ``span_bytes`` bytes plus ``slack`` words of window slack: the one
+    width-bucket rule of the chain rectangles."""
+    return np.maximum(64, 2 ** np.ceil(np.log2(np.maximum(
+        np.asarray(span_bytes, np.int64) // 4 + slack, 1))).astype(np.int64))
+
+
 def span_buckets(coffs) -> np.ndarray:
     """Per-entry pow2 rect-width bucket key from the lens walk's channel
     offsets — the rect width the entry's widest channel needs (== what
     channel_rects picks for a batch of just this entry).  Entries sharing
-    a key decode in one launch at that conveyor geometry."""
+    a key decode in one launch at that rectangle width."""
     coffs_a = np.asarray(coffs, np.int64)
     if len(coffs_a) == 0:
         return np.zeros(0, np.int64)
@@ -94,8 +102,7 @@ def span_buckets(coffs) -> np.ndarray:
         coffs_a[:, 2] - coffs_a[:, 1],
         coffs_a[:, 3] - coffs_a[:, 2],
         coffs_a[:, 4] - coffs_a[:, 3]])
-    return np.maximum(64, 2 ** np.ceil(
-        np.log2(np.maximum(spans // 4 + 12, 1))).astype(np.int64))
+    return pow2_words(spans, 12)
 
 
 def fused_decode_entries(buf: np.ndarray, starts: np.ndarray,
@@ -105,18 +112,18 @@ def fused_decode_entries(buf: np.ndarray, starts: np.ndarray,
     step (ops/decode2.decode_entry_batch2): all five channels, run
     expansion and tag interleave on device.  Each channel's bytes are
     laid out as a dense word-aligned rectangle host-side (memcpy speed),
-    so the chip fetches only the channel being decoded and never
+    so the device fetches only the channel being decoded and never
     random-accesses the container image; run chains are bounded by the
     lens walk's exact token counts.
 
     Entries are split into compressed-length buckets (one launch per
     bucket) so a realistic PacBio length mix decodes each read at its
-    own bucket's geometry — a single 60 kb read no longer demotes the
-    whole batch off the conveyor or inflates every short read's padded
-    plane width (round-2 long-read cliff).  Returns (5, N, max_len) u8
-    rows with max_len the global bucket."""
+    own bucket's geometry — a single 60 kb read does not inflate every
+    short read's padded rectangle and plane width.  Returns
+    (5, N, max_len) u8 rows with max_len the global bucket."""
     import jax.numpy as jnp
     from ..ops import decode2 as d2
+    from ..utils.dispatch import chain_kernel
 
     rlens = np.asarray(rlens, np.int32)
     starts = np.asarray(starts, np.int64)
@@ -125,14 +132,13 @@ def fused_decode_entries(buf: np.ndarray, starts: np.ndarray,
     n = len(starts)
     # quarter-octave buckets (not pow2): every (N, max_len) plane op —
     # expand network, tag route, masks, the output stack — pays the full
-    # padded width, and pow2 made that up to 2x the data (chip ablation:
-    # max_len 4096 vs longest read 2050 at bench shapes)
+    # padded width, and pow2 made that up to 2x the data (max_len 4096
+    # vs a longest read of 2050 at the benchmark's shapes)
     gmax_len = bucket_len(int(rlens.max(initial=0)), 512)
     sids, f1, f2, types, del_mode, sub_mode, subw, lmax = \
         decode_tables_v2(coding)
     chan_l2 = tuple(bool(((f1[sids[k]] >> 20) & 1).any())
                     for k in range(6))
-    spec = d2.spec_table(sids, f1, f2, types, subw, lmax)
     args_rep = (jnp.asarray(sids), jnp.asarray(f1), jnp.asarray(f2),
                 jnp.asarray(types), jnp.int32(coding.del_char & 0xFF),
                 jnp.int32(coding.sub_char & 0xFF))
@@ -146,7 +152,7 @@ def fused_decode_entries(buf: np.ndarray, starts: np.ndarray,
         statics = dict(max_len=max_len, max_tokens=max_tokens,
                        del_mode=del_mode, sub_mode=sub_mode, subw=subw,
                        lmax=lmax, chan_l2=chan_l2, max_sym=max_sym,
-                       spec=spec)
+                       kernel=chain_kernel())
         if mesh is None:
             rows = d2.decode_entry_batch2(
                 *(jnp.asarray(r) for r in rects), jnp.asarray(rl_b),
@@ -194,7 +200,6 @@ def batch_decode_entries(buf: np.ndarray, starts: np.ndarray,
     # quarter-octave bucket (see fused_decode_entries): plane ops pay the
     # padded width, so pow2 wastes up to 2x on every channel
     max_len = bucket_len(int(rlens.max(initial=0)), 512)
-    max_sym = bucket_len(int(rlens.max(initial=0)))
     buf = np.concatenate([np.asarray(buf, np.uint8), np.zeros(8, np.uint8)])
     bufd = jnp.asarray(buf)
 
@@ -238,135 +243,83 @@ def batch_decode_entries(buf: np.ndarray, starts: np.ndarray,
     starts = np.asarray(starts, np.int64)
     out = np.empty((5, n, max_len), np.uint8)
 
-    # accelerator path: per-scheme conveyor chains over dense channel
-    # rectangles (the per-read scheme ids of a multi-cell DB group
-    # naturally — one kernel launch per live scheme).  With a mesh the
-    # same conveyor runs per shard under shard_map — per-shard
-    # rectangles are ordinary device arrays, so per-read decode cost
-    # must not depend on partitioning (DB.c:2575-2621 consumption).
-    from ..ops.decode2 import conveyor_mode
+    # GPU path: the chain kernel over dense per-entry rectangles, every
+    # lane with its own scheme ids (the reads of a multi-cell DB decode in
+    # one launch per rectangle width).  With a mesh the same kernel runs
+    # per shard under shard_map, so per-read decode cost does not depend
+    # on partitioning (DB.c:2575-2621 consumption).
+    from ..utils.dispatch import chain_kernel
 
-    cmode = conveyor_mode()
-    use_conveyor = cmode is not None
-    if use_conveyor:
+    kernel = chain_kernel()
+    if kernel:
         from ..ops.decode2 import scheme_tables2, build_entry_rect
-        from ..ops import decode_conveyor as dcv
+        from ..ops import chain_gpu as cg
 
         f1_t, f2_t, subw_t, lmax_t = scheme_tables2(schemes)
-        f2_rows = (len(f2_t) + 127) // 128
-        if subw_t and f2_rows > 16:
-            use_conveyor = False         # pathological tables: XLA path
+        f1_j, f2_j = jnp.asarray(f1_t), jnp.asarray(f2_t)
         # per-entry byte span bounds any channel's stream length
         entry_ends = np.concatenate([starts[1:], np.array([len(buf)])])
-        f2_j = jnp.asarray(f2_t) if use_conveyor else None
-        interp = cmode == "interpret"
+        interp = kernel == "interpret"
 
-    def _rect_k(spans):
-        k = int(np.max(spans, initial=0) // 4) + 16
-        return 1 << max(k - 1, 63).bit_length()
-
-    def _kw_buckets(sel, spans):
-        """Split a scheme group by pow2 rect width so long entries get
-        their own conveyor geometry and short ones keep full speed;
-        entries past the conveyor ceiling fall back to the XLA chains."""
-        from ..ops.decode_conveyor import MAX_CONV_WORDS
-
-        kws = np.maximum(64, 2 ** np.ceil(np.log2(np.maximum(
-            spans // 4 + 16, 1))).astype(np.int64))
+    def _kw_buckets(starts_b, rl):
+        """Split chains by pow2 rect width so long entries get their own
+        rectangle and short ones are not padded to it; each bucket decodes
+        at its own longest chain's width.  Yields (sel, rect, width)."""
+        # the channel start lies inside its entry; the entry end bounds
+        # the channel's stream length
+        eidx = np.searchsorted(starts, starts_b, "right") - 1
+        kws = pow2_words(entry_ends[eidx] - starts_b, 16)
         for kw in np.unique(kws):
-            yield sel[kws == kw], int(kw), int(kw) > MAX_CONV_WORDS
+            sel = np.flatnonzero(kws == kw)
+            yield (sel, build_entry_rect(buf, starts_b[sel], int(kw)),
+                   bucket_len(int(rl[sel].max(initial=0))))
 
-    def _shmap(fn, n_extra_out: int):
-        """shard_map a conveyor call: rect + chains over the data axis,
-        tables replicated.  Shards see plain device arrays, so the
-        Pallas kernel runs unchanged per shard."""
-        from jax.sharding import PartitionSpec as P
-        from jax import shard_map
-        from ..parallel.mesh import DATA_AXIS
-
-        return shard_map(
-            fn, mesh=mesh,
-            in_specs=(P(DATA_AXIS, None), P(DATA_AXIS)),
-            out_specs=(P(DATA_AXIS, None),) * (1 + n_extra_out)
-            + (P(DATA_AXIS),) * 2,
-            check_vma=False)       # pallas_call out_shapes carry no vma
-
-    def _conv_dispatch(rect, rl, kern):
-        """Run ``kern(rect, rl)`` directly or shard_map'd over ``mesh``
-        (chains padded to the device count)."""
+    def _k_dispatch(fn, *args):
+        """``fn(*args)`` on one device, or per shard over ``mesh``."""
         if mesh is None:
-            return kern(jnp.asarray(rect), jnp.asarray(rl))
-        nsh = mesh.devices.size
-        pad = (-len(rl)) % nsh
-        outs = _shmap(kern, 1 if kern.__name__ == "_run" else 0)(
-            jnp.asarray(np.pad(rect, ((0, pad), (0, 0)))),
-            jnp.asarray(np.pad(rl, (0, pad))))
-        return tuple(o[: len(rl)] for o in outs)
+            return fn(*(jnp.asarray(a) for a in args))
+        from ..parallel.pipeline import sharded_lanes
+        return sharded_lanes(mesh, fn, *args)
 
-    def _conv_plain(starts_b, rl, sym_ids):
+    def _signals(ids):
+        return np.where(types_np[ids] == 2, 255, 256).astype(np.int32)
+
+    def _k_plain(starts_b, rl, sym_ids):
         o = np.zeros((len(starts_b), max_len), np.uint8)
         bits = np.zeros(len(starts_b), np.int64)
         lg = np.zeros(len(starts_b), np.int64)
-        for sid in np.unique(sym_ids):
-            gsel = np.flatnonzero(sym_ids == sid)
-            # the channel start lies inside its entry; the entry end
-            # bounds the channel's stream length
-            eidx = np.searchsorted(starts, starts_b[gsel], "right") - 1
-            gspans = entry_ends[eidx] - starts_b[gsel]
-            sig = 255 if types_np[sid] == 2 else 256
-            f1_j = jnp.asarray(f1_t[sid])
+        for sel, rect, ms in _kw_buckets(starts_b, rl):
+            def fn(rect_, rl_, sid_, sig_, ms=ms):
+                return cg.plain_chains_gpu(
+                    rect_, rl_, sid_, sig_, rl_ * 0, f1_j, f2_j,
+                    max_len=ms, subw=subw_t, lmax=lmax_t, interpret=interp)
 
-            def _plain(rect_, rl_):
-                return dcv.plain_chain_conveyor(
-                    rect_, rl_, f1_j, f2_j, jnp.int32(sig),
-                    max_len=max_sym, subw=subw_t, lmax=lmax_t,
-                    interpret=interp)
-
-            for sel, kw, too_wide in _kw_buckets(gsel, gspans):
-                if too_wide:       # past the conveyor ceiling: XLA chain
-                    ob, b, g = _xla_plain(starts_b[sel], rl[sel],
-                                          sym_ids[sel])
-                    o[sel] = np.asarray(ob)
-                else:
-                    rect = build_entry_rect(buf, starts_b[sel], kw)
-                    rows, b, g = _conv_dispatch(rect, rl[sel], _plain)
-                    o[sel, :max_sym] = np.asarray(rows)
-                bits[sel] = np.asarray(b)
-                lg[sel] = np.asarray(g)
+            rows, b, g = _k_dispatch(fn, rect, rl[sel], sym_ids[sel],
+                                     _signals(sym_ids[sel]))
+            o[sel, :ms] = np.asarray(rows)
+            bits[sel] = np.asarray(b)
+            lg[sel] = np.asarray(g)
         return o, bits, lg
 
-    def _conv_run(starts_b, rl, sym_ids, run_ids):
+    def _k_run(starts_b, rl, sym_ids, run_ids):
         runs = np.zeros((len(starts_b), max_len), np.int32)
         lits = np.full((len(starts_b), max_len), -1, np.int32)
         bits = np.zeros(len(starts_b), np.int64)
         lg = np.zeros(len(starts_b), np.int64)
-        keys = sym_ids.astype(np.int64) * 1000 + run_ids
-        for key in np.unique(keys):
-            gsel = np.flatnonzero(keys == key)
-            sid, rid = int(sym_ids[gsel[0]]), int(run_ids[gsel[0]])
-            eidx = np.searchsorted(starts, starts_b[gsel], "right") - 1
-            gspans = entry_ends[eidx] - starts_b[gsel]
-            sig = 255 if types_np[sid] == 2 else 256
-            f1r_j, f1s_j = jnp.asarray(f1_t[rid]), jnp.asarray(f1_t[sid])
-
-            def _run(rect_, rl_):
-                return dcv.run_chain_conveyor(
-                    rect_, rl_, f1r_j, f1s_j, f2_j, jnp.int32(sig),
-                    max_tokens=max_sym, subw=subw_t, lmax=lmax_t,
+        for sel, rect, ms in _kw_buckets(starts_b, rl):
+            # every token of a live chain emits at least one symbol
+            def fn(rect_, rl_, rid_, sid_, sig_, ms=ms):
+                return cg.run_chains_gpu(
+                    rect_, rl_, rid_, sid_, sig_, rl_ * 0, rl_ * 0 - 1, f1_j,
+                    f2_j, max_tokens=ms, subw=subw_t, lmax=lmax_t,
                     interpret=interp)
 
-            for sel, kw, too_wide in _kw_buckets(gsel, gspans):
-                if too_wide:
-                    r_, l_, _, b, g = _xla_run(starts_b[sel], rl[sel],
-                                               sym_ids[sel], run_ids[sel])
-                else:
-                    rect = build_entry_rect(buf, starts_b[sel], kw)
-                    r_, l_, b, g = _conv_dispatch(rect, rl[sel], _run)
-                t = min(max_len, np.asarray(r_).shape[1])
-                runs[sel, :t] = np.asarray(r_)[:, :t]
-                lits[sel, :t] = np.asarray(l_)[:, :t]
-                bits[sel] = np.asarray(b)
-                lg[sel] = np.asarray(g)
+            r_, l_, b, g = _k_dispatch(fn, rect, rl[sel], run_ids[sel],
+                                       sym_ids[sel], _signals(sym_ids[sel]))
+            runs[sel, :ms] = np.asarray(r_)
+            lits[sel, :ms] = np.asarray(l_)
+            bits[sel] = np.asarray(b)
+            lg[sel] = np.asarray(g)
         return runs, lits, None, bits, lg
 
     def _pad(a):
@@ -396,13 +349,13 @@ def batch_decode_entries(buf: np.ndarray, starts: np.ndarray,
         return runs[:m], lits[:m], em[:m], b[:m], lg[:m]
 
     def _plain(starts_b, rl, sym_ids):
-        if use_conveyor:
-            return _conv_plain(starts_b, rl, sym_ids)
+        if kernel:
+            return _k_plain(starts_b, rl, sym_ids)
         return _xla_plain(starts_b, rl, sym_ids)
 
     def _run(starts_b, rl, sym_ids, run_ids):
-        if use_conveyor:
-            return _conv_run(starts_b, rl, sym_ids, run_ids)
+        if kernel:
+            return _k_run(starts_b, rl, sym_ids, run_ids)
         return _xla_run(starts_b, rl, sym_ids, run_ids)
 
     def channel(starts_b, key, run_key, rchars):
@@ -595,9 +548,7 @@ def build_seg_launch_flat(buf, starts, rlens, coffs, ntoks, coding, ck):
 
     The bucketed scheme (seg_read_buckets + build_seg_launch) pads every
     read in a bucket to the bucket's max segments-per-read and pays a
-    per-launch floor per bucket — CHIP_r04 showed the 32 MB log-normal
-    batch spending two launches (5.98 + 2.23 ms) where the uniform batch
-    spends one.  After checkpointing, segment rows are already uniform
+    per-launch floor per bucket.  After checkpointing, segment rows are already uniform
     (<= ``seg`` symbols each, decode2.decode_entry_batch_seg), so the
     flat layout simply lists the live segments of ALL reads as
     independent rows (s_per == 1: each flat row IS a "read" of its
@@ -695,9 +646,8 @@ def seg_read_buckets(rlens, seg: int, launch_cost: int = 2048):
     """Partition reads into segments-per-read buckets by a small DP.
 
     Every read in a launch is padded to the bucket's max segment count
-    (dead chains), and every launch pays a fixed floor (~0.6 ms of
-    dispatch + five-channel machinery on chip — the 13-launch quarter-
-    octave scheme spent ~8 of 10.7 ms on floors).  The DP over the
+    (dead chains), and every launch pays a fixed floor (dispatch and the
+    five-channel plane machinery).  The DP over the
     sorted distinct segment counts minimizes
         sum over buckets [ n_b * S_b(max) + launch_cost ]
     (padded-chain units; launch_cost ~= the chain-equivalents of one
@@ -761,6 +711,7 @@ def fused_decode_entries_seg(buf, starts, rlens, coffs, ntoks, coding, ck,
     import os
     import jax.numpy as jnp
     from ..ops import decode2 as d2
+    from ..utils.dispatch import chain_kernel
 
     rlens = np.asarray(rlens, np.int32)
     n = len(starts)
@@ -769,7 +720,7 @@ def fused_decode_entries_seg(buf, starts, rlens, coffs, ntoks, coding, ck,
         decode_tables_v2(coding)
     chan_l2 = tuple(bool(((f1[sids[k]] >> 20) & 1).any())
                     for k in range(6))
-    spec = d2.spec_table(sids, f1, f2, types, subw, lmax)
+    kernel = chain_kernel()
     args_rep = (jnp.asarray(sids), jnp.asarray(f1), jnp.asarray(f2),
                 jnp.asarray(types), jnp.int32(coding.del_char & 0xFF),
                 jnp.int32(coding.sub_char & 0xFF))
@@ -779,13 +730,13 @@ def fused_decode_entries_seg(buf, starts, rlens, coffs, ntoks, coding, ck,
         if mesh is None:
             return d2.decode_entry_batch_seg(
                 *(jnp.asarray(a) for a in args), *args_rep,
-                subw=subw, lmax=lmax, chan_l2=chan_l2, spec=spec,
+                subw=subw, lmax=lmax, chan_l2=chan_l2, kernel=kernel,
                 **statics)
         from ..parallel.pipeline import sharded_decode_entry_seg
         args, nb = _pad_seg_args(args, statics["s_per"],
                                  mesh.devices.size)
         fn = sharded_decode_entry_seg(
-            mesh, subw=subw, lmax=lmax, chan_l2=chan_l2, spec=spec,
+            mesh, subw=subw, lmax=lmax, chan_l2=chan_l2, kernel=kernel,
             **statics)
         return fn(*(jnp.asarray(a) for a in args), *args_rep)[:, :nb]
 

@@ -1,6 +1,6 @@
 """.fasta <-> .dexta and .arrow <-> .dexar codecs.
 
-Data plane on TPU: ascii->code LUT translation, padding mask, and the 2-bit
+Device data plane: ascii->code translation, padding mask, and the 2-bit
 pack run as one fused jitted program over an (N, Lpad) rectangle; decode is
 the mirror image.  The host control plane does text parsing and byte-exact
 container framing (reference encoders dexta.c:102-205 / dexar.c:101-211).
@@ -28,15 +28,9 @@ from ..ops import twobit as tb
 def _encode_rows(ascii_rows, lengths, number_lut, alphabet: str | None = None):
     if alphabet in ("base", "arrow"):
         # arithmetic letter map + multiply pack (ops/twobit.pack_translate):
-        # no gather, no compaction network — the encode mirror of the
-        # unpack_translate decode trick (round-4's 73 -> 181 GB/s win)
+        # no gather, no compaction network — the encode mirror of
+        # unpack_translate
         return tb.pack_translate(ascii_rows, lengths, alphabet=alphabet)
-    from ..ops.emit_pallas import fused_ok
-
-    if fused_ok(ascii_rows.shape[1]):
-        from ..ops.emit_pallas import pack2bit_pallas
-
-        return pack2bit_pallas(ascii_rows, lengths, number_lut)
     codes = number_lut[ascii_rows]
     return tb.pack_2bit(codes, lengths)
 

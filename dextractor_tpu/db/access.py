@@ -2,7 +2,7 @@
 
 ``open_db`` reads the stub + .idx (whole DB or one block part ``path.N``),
 ``DazzDB`` provides trim, sequence/arrow/QV loading and generic tracks.
-Batch loaders return columnar NumPy data ready for the TPU codec kernels;
+Batch loaders return columnar NumPy data ready for the device codecs;
 the scalar loaders mirror Load_Read / Load_QVentry / Load_Arrow semantics.
 """
 

@@ -3,7 +3,7 @@
 The reference streams these files line-by-line with fgets/sscanf
 (dexta.c:102-205, dexar.c:101-211, undexta.c:175-271, undexar.c:158-229).
 Here whole files are parsed with NumPy newline scans and assembled with
-ragged scatters, so the host side keeps up with the TPU codec kernels.
+ragged scatters, so the host side keeps up with the device codecs.
 
 Header grammar (after the first '/'): ``well/beg_end RQ=0.qv`` for fasta
 (qv optional, defaults 0 — dexta.c:151-157) and ``well/beg_end SN=a,b,c,d``

@@ -1,6 +1,6 @@
 """Ragged <-> padded-rectangle conversions (host side, vectorized NumPy).
 
-TPU kernels want rectangular (N, Lpad) layouts with a length vector; file
+Device kernels want rectangular (N, Lpad) layouts with a length vector; file
 containers want tightly packed variable-length byte runs.  These helpers are
 the bridge and are used by every codec.
 """
@@ -56,13 +56,11 @@ def bucket_len(x: int, floor: int = 512) -> int:
 def bucket_rows(n: int, floor: int = 8) -> int:
     """Row-count bucket: round up to eighth-power-of-two granularity.
 
-    Batch ROW padding used pow2 everywhere (bench and the device file
-    encode), which at the bench shapes meant 1560 -> 2048 rows = ~24%
-    dead rows in EVERY plane op — the expand network, tag route, masks,
-    emission planes and the conveyor chain blocks all pay the padded
-    row count (CHIP_r05: the flat segment decode's 1.22x-of-uniform
-    rate is mostly its ~8% row padding vs pow2's).  Eighth-octave steps
-    cap the waste at 12.5% with <= 8 compiled shapes per doubling."""
+    Pow2 row padding would mean, at the benchmark's shapes, 1560 -> 2048
+    rows = ~24% dead rows in EVERY plane op (the expand network, tag
+    route, masks, emission planes and the decode chains all pay the
+    padded row count).  Eighth-octave steps cap the waste at 12.5% with
+    <= 8 compiled shapes per doubling."""
     n = max(int(n), floor)
     gran = max(1, (1 << (n.bit_length() - 1)) // 8)
     return (n + gran - 1) // gran * gran

@@ -16,7 +16,7 @@ qs (pulse start).  Variables a record does not define evaluate to -1
 Unlike the reference's per-record tree walk, evaluation here is vectorized:
 ``Filter.evaluate`` takes a dict of equal-length NumPy (or JAX) arrays and
 returns a boolean keep-mask for the whole batch in one pass — the shape the
-TPU ingestion pipeline wants.
+batched ingestion pipeline wants.
 """
 
 from __future__ import annotations

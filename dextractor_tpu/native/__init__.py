@@ -120,11 +120,6 @@ def qv_encode_shim():
         lib.dxt_gather_copy.argtypes = [
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
             ctypes.c_void_p, ctypes.c_longlong]
-        lib.dxt_region_merge.restype = None
-        lib.dxt_region_merge.argtypes = [
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_longlong, ctypes.c_longlong,
-            ctypes.c_void_p, ctypes.c_void_p]
         lib.dxt_qv_scan_hists.restype = None
         lib.dxt_qv_scan_hists.argtypes = [
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,

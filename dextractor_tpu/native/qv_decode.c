@@ -6,8 +6,8 @@
  * chain at C speed — the host-side "data loader" of the framework — while
  * all byte-parallel post-processing (run expansion already done here is
  * cheap; Phred shifts, container assembly, text framing) stays vectorized
- * in NumPy/JAX.  It also doubles as the boundary indexer for the TPU batch
- * decoder (materialize=0 records offsets only).
+ * in NumPy/JAX.  It also doubles as the boundary indexer for the device
+ * batch decoder (materialize=0 records offsets only).
  *
  * The bitstream semantics replicate Decode/Decode_Run (QV.c:510-691): 16-bit
  * peeks into a 64K lookup table, escape symbol + 8-bit literal (16-bit run

@@ -1,4 +1,4 @@
-/* Host-side Huffman channel encoder (CPU fallback for the TPU pipeline).
+/* Host-side Huffman channel encoder (the CPU path beside the device pipeline).
  *
  * Replicates the reference's 32-bit OCODE emitter byte for byte
  * (QV.c:404-506) including the tail-padding rule, the escape literal
@@ -560,50 +560,4 @@ long long dxt_pack_tags(
       out_lens[i] = total - before;
     }
   return total;
-}
-
-/* Merge chunk-local word regions (ops/pack_local.py) into dense packed
- * word streams.  Region q of row i (128 words at words + i*m + 128*q)
- * covers stream words [base>>5, ceil(end/32)) with end the next chunk's
- * base (the row's total bits t[i] for the last live chunk); adjacent
- * regions overlap by at most one straddle word whose bit ranges are
- * disjoint, so the combine is OR.  Row i's raw = ceil(t[i]/32) words
- * are written at dst + dst_offs[i] (zeroed first). */
-void dxt_region_merge(const int32_t *words, const int32_t *base,
-                      const long long *t, long long n, long long m,
-                      uint32_t *dst, const long long *dst_offs)
-{ int64_t i, q, j;
-  int64_t c = m / 128;
-
-  for (i = 0; i < n; i++)
-    { const int32_t  *wrow = words + i * m;
-      const int32_t  *brow = base + i * c;
-      uint32_t       *drow = dst + dst_offs[i];
-      int64_t         raw = (t[i] + 31) >> 5;
-
-      for (j = 0; j < raw; j++)
-        drow[j] = 0;
-      for (q = 0; q < c; q++)
-        { int64_t b0 = (uint32_t) brow[q];
-          int64_t b1 = (q + 1 < c) ? (uint32_t) brow[q + 1] : t[i];
-          int64_t w0, nw;
-
-          if (b1 <= b0)
-            continue;
-          if (b1 > t[i])        /* never write past the row's raw words */
-            b1 = t[i];
-          w0 = b0 >> 5;
-          nw = ((b1 + 31) >> 5) - w0;
-          if (w0 >= raw)
-            continue;
-          if (nw > raw - w0)
-            nw = raw - w0;
-          /* OR throughout: regions only overlap at bit-disjoint straddle
-             words, and all-zero pad chunks (stats lanes beyond a
-             narrower channel's real chunk count read as base 0) must
-             not clobber already-merged words */
-          for (j = 0; j < nw; j++)
-            drow[w0 + j] |= (uint32_t) wrow[128 * q + j];
-        }
-    }
 }

@@ -1,8 +1,8 @@
 /* Host-side 2-bit codec fast paths (CPU-only deployments).
  *
- * The TPU kernels (ops/emit_pallas.pack2bit_pallas, twobit unpack) own
- * the accelerator path; these single-pass loops carry the host fallback
- * at C-tool speed instead of NumPy rectangle assembly.
+ * The device path (ops/twobit pack_translate / unpack_translate) owns the
+ * accelerator; these single-pass loops carry the host path at C-tool
+ * speed instead of NumPy rectangle assembly.
  *
  * Semantics: Compress_Read / Uncompress_Read (DB.c:319-363) — first base
  * in bits 7-6 — and undexta.c:241-264's width-wrapped text emission.

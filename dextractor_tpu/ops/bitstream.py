@@ -16,7 +16,7 @@ QV.c:510-691), including:
 
 Encoding is built as: tokenize -> per-token (value,bits) pairs -> exclusive
 prefix sum of bit lengths -> scatter-OR into words.  That same shape is what
-the TPU kernel uses (ops/bitstream_jax.py); this module is the host/oracle
+the device encoder uses (ops/bitstream_jax.py); this module is the host/oracle
 implementation and handles single streams.
 
 Known divergence: run lengths >= 65536 overflow the 16-bit escape literal;
@@ -164,7 +164,7 @@ def encode_run_stream(neme: HScheme, reme: HScheme, data: np.ndarray, rchar: int
 
 
 # ---------------------------------------------------------------------------
-# decode (host reference; the TPU path lives in bitstream_jax)
+# decode (host reference; the device decode lives in decode2/chain_gpu)
 # ---------------------------------------------------------------------------
 
 class BitReader:

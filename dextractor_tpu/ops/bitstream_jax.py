@@ -1,7 +1,7 @@
-"""Batched Huffman bitstream encoding on TPU.
+"""Batched Huffman bitstream encoding on the device.
 
 The reference encodes one symbol at a time through a 32-bit shift register
-(OCODE, QV.c:404-422).  The TPU formulation turns the whole file into one
+(OCODE, QV.c:404-422).  The device formulation turns the whole file into one
 data-parallel program over an (N, Lpad) rectangle of streams:
 
   1. per-symbol emission values/widths via 256-entry LUT gathers
@@ -15,9 +15,8 @@ data-parallel program over an (N, Lpad) rectangle of streams:
      cheap host-side gather using per-row totals.
 
 Every step is elementwise, cumsum, or scatter — shapes are static, so XLA
-fuses 1-3 and the TPU stays HBM-bound.  uint64 is avoided throughout (TPU
-has no native 64-bit lanes): hi/lo word contributions use clamped 32-bit
-shifts.
+fuses 1-3 and the step stays HBM-bound.  uint64 is avoided throughout:
+hi/lo word contributions use clamped 32-bit shifts.
 
 Scheme tables enter as packed (256,) int32 LUTs (bits<<6 | len<<1 | esc)
 so each symbol costs one gather (see ``scheme_luts``).
@@ -25,15 +24,11 @@ so each symbol costs one gather (see ``scheme_luts``).
 
 from __future__ import annotations
 
-import functools
-import os
-
 import numpy as np
 import jax
 import jax.numpy as jnp
 
 from .huffman import HScheme
-from ..utils.dispatch import pallas_ok
 
 
 def scheme_luts(scheme: HScheme, run: bool = False) -> np.ndarray:
@@ -60,22 +55,9 @@ def _excl_cumsum(x, axis):
     return c - x
 
 
-USE_MXU_GATHER = True
-
-
 def _lut_gather(data, lut_i32):
-    """256-entry LUT lookup for every element of ``data`` (u8 -> i32).
-
-    TPU one-element gathers cost ~16 cycles each, so by default the lookup
-    rides the MXU instead: a one-hot matmul against the LUT split into
-    three bf16-exact byte planes (each < 256, so every product and the
-    single-term sums are exact).  data (N, L) -> (N, L) i32.
-    """
-    if not USE_MXU_GATHER or jax.default_backend() == "cpu":
-        return lut_i32[data.astype(jnp.int32)]
-    from .lut_pallas import lut_gather_lane
-
-    return lut_gather_lane(data, lut_i32)
+    """256-entry LUT lookup for every element of ``data`` (u8 -> i32)."""
+    return lut_i32[data.astype(jnp.int32)]
 
 
 def _sym_emissions(data, luts):
@@ -184,7 +166,7 @@ def compact_monotone(vals: tuple, keep):
     ``d = position - rank`` is monotone non-decreasing along the row; moving
     every element whose remaining displacement has bit b set by 2^b, LSB to
     MSB, routes all kept elements without collisions (overwrites only hit
-    dropped slots).  ~10x cheaper than a sort on TPU.
+    dropped slots).
     """
     n_rows, m = keep.shape
     ranks = jnp.cumsum(keep, axis=1) - 1
@@ -206,8 +188,7 @@ def pack_words(v, n):
     """Assemble emissions (N, M) into per-row u32 word rectangles (N, M+1).
 
     Bit offsets are row-local; each emission lands in at most two words
-    (hi/lo 32-bit contributions, bit-disjoint so sum == or).  A naive
-    per-emission scatter-add serializes on TPU, so instead:
+    (hi/lo 32-bit contributions, bit-disjoint so sum == or):
 
     - per-slot word indices ``w = off >> 5`` are monotone and never skip
       (every emission is <= 32 bits), so contributions to one word are a
@@ -259,19 +240,6 @@ def pack_words(v, n):
     return hi_vals + lo_vals
 
 
-def pack_words_any(v, n):
-    """pack_words via the in-VMEM Pallas kernel on TPU (HBM sees one read
-    of (v, n) and one write of words; the log-shift rounds stay in VMEM),
-    falling back to the XLA formulation on CPU — and for monster slot
-    widths, whose kernel tiles exceed the 16 MB scoped-vmem limit
-    ((16, 57472) i32 = 16.14M on chip)."""
-    if not pallas_ok() or v.shape[1] > 32768:
-        return pack_words(v, n)
-    from .pack_pallas import pack_words_pallas
-
-    return pack_words_pallas(v.astype(jnp.int32), n)
-
-
 def word_counts(t, last_gran):
     """(raw_words, out_words, dup, zero_ext) per row from totals.
 
@@ -318,156 +286,26 @@ def finalize_rows(words: np.ndarray, raw: np.ndarray, out: np.ndarray,
     return flat, out
 
 
-def merge_region_rows(words: np.ndarray, base: np.ndarray,
-                      t_bits: np.ndarray) -> np.ndarray:
-    """Merge chunk-local word regions (ops/pack_local) into dense rows.
-
-    words (N, M) i32: region q of each row in lanes [128q, 128q+128);
-    base (N, C) i64/i32: each chunk's start bit offset; t_bits (N,) the
-    row's total bits.  Region q covers stream words
-    [base_q>>5, ceil(end_q/32)) with end_q the next chunk's base (the
-    row total for the last live chunk); adjacent regions overlap by at
-    most one straddle word with disjoint bit ranges, so the merge is
-    OR.  NumPy fallback — the native path is dxt_region_merge."""
-    n, m = words.shape
-    c = m // 128
-    t = np.asarray(t_bits, np.int64)
-    base = np.asarray(base, np.int64)
-    ends = np.concatenate([base[:, 1:], t[:, None]], axis=1)
-    ends = np.maximum(ends, base)
-    mw = int(((t + 31) >> 5).max(initial=0)) + 1
-    merged = np.zeros((n, mw), np.int32)
-    wu = words.astype(np.int32)
-    for q in range(c):
-        b0, b1 = base[:, q], ends[:, q]
-        live = b1 > b0
-        if not live.any():
-            continue
-        w0 = b0 >> 5
-        nw = ((b1 + 31) >> 5) - w0
-        mx = int(nw.max(initial=0))
-        for j in range(mx):
-            sel = live & (nw > j)
-            merged[sel, w0[sel] + j] |= wu[sel, q * 128 + j]
-    return merged
-
-
-def finalize_rows_local(words: np.ndarray, bases: np.ndarray,
-                        t_bits: np.ndarray, out: np.ndarray,
-                        dup: np.ndarray, zext: np.ndarray
-                        ) -> tuple[np.ndarray, np.ndarray]:
-    """finalize_rows for region-format word rows (ops/pack_local).
-
-    Merges each row's chunk regions straight into its slot of the flat
-    output (native dxt_region_merge; NumPy fallback), then applies the
-    dup/zext tail rule."""
-    n, m = words.shape
-    t = np.asarray(t_bits, np.int64)
-    raw = (t + 31) >> 5
-    out = np.asarray(out, np.int64)
-    if m // 128 != bases.shape[1]:
-        # the region format carries at most 124 chunk bases (stats
-        # lanes 2..125); emit_pallas routes wider tiles to the global
-        # pack, so a mismatch here means corrupt inputs — refuse rather
-        # than let the native merge index past the base array
-        raise ValueError(
-            f"region merge: {m // 128} chunks but {bases.shape[1]} bases")
-    # the native merge zero-fills raw=(t+31)>>5 words into a dst slot
-    # sized by out[i]: a corrupt device t (the miscompile threat class
-    # the device-length validation defends against) must be refused
-    # BEFORE the native call, not discovered as a heap overflow
-    if bool((raw > out).any()) or bool((raw > m).any()):
-        raise ValueError("region merge: raw word count exceeds the "
-                         "row's output slot or region capacity")
-    total = int(out.sum())
-    if total == 0:
-        return np.empty(0, np.uint32), out
-    starts = np.zeros(n, np.int64)
-    np.cumsum(out[:-1], out=starts[1:])
-    flat = np.zeros(total, np.uint32)
-    try:
-        from ..native import qv_encode_shim
-        import ctypes
-
-        lib = qv_encode_shim()
-        ptr = lambda a: a.ctypes.data_as(ctypes.c_void_p)
-        wc = np.ascontiguousarray(words, np.int32)
-        bc = np.ascontiguousarray(bases, np.int32)
-        tc = np.ascontiguousarray(t)
-        sc = np.ascontiguousarray(starts)
-        lib.dxt_region_merge(ptr(wc), ptr(bc), ptr(tc), n, m,
-                             ptr(flat), ptr(sc))
-    except OSError:
-        merged = merge_region_rows(words, bases, t)
-        return finalize_rows(merged.view(np.uint32), raw, out, dup, zext)
-    d = np.flatnonzero(np.asarray(dup) & (raw > 0))
-    flat[starts[d] + raw[d]] = flat[starts[d] + raw[d] - 1]
-    return flat, out
-
-
 # ---------------------------------------------------------------------------
 # fused device programs
 # ---------------------------------------------------------------------------
 
-def _lane_pad(data):
-    l = data.shape[1]
-    lp = (l + 127) // 128 * 128
-    if lp != l:
-        data = jnp.pad(data, ((0, 0), (0, lp - l)))
-    return data
+@jax.jit
+def encode_plain_rows(data, lengths, luts):
+    v, n, t, lg = plain_emissions(data, lengths, luts)
+    raw, out, dup, zext = word_counts(t, lg)
+    return pack_words(v, n), raw, out, dup, zext
 
 
 @jax.jit
-def encode_plain_rows(data, lengths, luts):
-    # width cap mirrors emit_pallas.fused_ok: the kernels' VMEM live set
-    # scales with row width (a 65536-wide run batch demanded 48 MB of
-    # scoped vmem on chip, 3x the 16 MB limit); monster rows take the
-    # XLA emissions, which stage their planes in HBM
-    if pallas_ok() and data.shape[1] <= 8192:
-        from .emit_pallas import encode_plain_pallas
-
-        words, t, lg, pst = encode_plain_pallas(
-            _lane_pad(data)[None], lengths.astype(jnp.int32), luts[None])
-        raw, out, dup, zext = word_counts(t[0], lg[0])
-        return words[0], raw, out, dup, zext, pst[0], t[0]
-    v, n, t, lg = plain_emissions(data, lengths, luts)
-    words = pack_words_any(v, n)
-    raw, out, dup, zext = word_counts(t, lg)
-    return words, raw, out, dup, zext
-
-
-@functools.partial(jax.jit, static_argnames=("max_tokens",))
-def encode_run_rows(data, lengths, rchar, sym_luts, run_luts,
-                    max_tokens: int | None = None):
-    if pallas_ok() and data.shape[1] <= 8192:   # see encode_plain_rows
-        from .emit_pallas import encode_run_pallas
-
-        words, t, lg, pst = encode_run_pallas(
-            _lane_pad(data)[None], lengths.astype(jnp.int32),
-            sym_luts[None], run_luts[None], rchar.reshape(1),
-            max_tokens=max_tokens)
-        raw, out, dup, zext = word_counts(t[0], lg[0])
-        return words[0], raw, out, dup, zext, pst[0], t[0]
+def encode_run_rows(data, lengths, rchar, sym_luts, run_luts):
     v, n, t, lg = run_emissions(data, lengths, rchar, sym_luts, run_luts)
-    words = pack_words_any(v, n)
     raw, out, dup, zext = word_counts(t, lg)
-    return words, raw, out, dup, zext
-
-
-def run_token_bound(data, lengths, rchar: int) -> int:
-    """Host-side static literal-count bound for the token-compacted run
-    kernel: the max over rows of #(symbol != rchar) within the row's
-    length, bucketed to 128 lanes (one program shape per bucket)."""
-    d = np.asarray(data)
-    ln = np.asarray(lengths).reshape(-1, 1)
-    col = np.arange(d.shape[1])[None, :]
-    cnt = int(((d != rchar) & (col < ln)).sum(axis=1).max(initial=0))
-    return max(128, -(-cnt // 128) * 128)
+    return pack_words(v, n), raw, out, dup, zext
 
 
 def encode_rows_np(data, lengths, scheme: HScheme,
-                   run_scheme: HScheme | None = None, rchar: int = -1,
-                   device: bool = True):
+                   run_scheme: HScheme | None = None, rchar: int = -1):
     """Encode a rectangle of streams; returns (flat u32, words-per-row)."""
     luts = jnp.asarray(scheme_luts(scheme))
     d = jnp.asarray(data)
@@ -476,28 +314,5 @@ def encode_rows_np(data, lengths, scheme: HScheme,
         parts = encode_plain_rows(d, ln, luts)
     else:
         rluts = jnp.asarray(scheme_luts(run_scheme, run=True))
-        mt = (run_token_bound(data, lengths, int(rchar))
-              if os.environ.get("DXT_RUN_TOKENS", "1") == "1" else None)
-        parts = encode_run_rows(d, ln, jnp.int32(rchar), luts, rluts,
-                                max_tokens=mt)
-    if len(parts) == 7:
-        words, raw, out, dup, zext, pst, t = (np.asarray(x) for x in parts)
-        if pst[:, 126].any():               # region format (DXT_PACK_LOCAL)
-            if pst[:, 127].any():
-                # chunk overflow (needs a ~32-bit/slot average — not
-                # reachable by real schemes): XLA global-pack fallback
-                if run_scheme is None:
-                    v, n, t2, lg2 = plain_emissions(d, ln, luts)
-                else:
-                    v, n, t2, lg2 = run_emissions(d, ln, jnp.int32(rchar),
-                                                  luts, rluts)
-                w2 = pack_words_any(v, n)
-                raw, out, dup, zext = (np.asarray(x) for x in
-                                       word_counts(t2, lg2))
-                return finalize_rows(np.asarray(w2), raw, out, dup, zext)
-            c = words.shape[1] // 128
-            return finalize_rows_local(words.view(np.int32),
-                                       pst[:, 2:2 + c], t, out, dup, zext)
-        return finalize_rows(words, raw, out, dup, zext)
-    words, raw, out, dup, zext = (np.asarray(x) for x in parts)
-    return finalize_rows(words, raw, out, dup, zext)
+        parts = encode_run_rows(d, ln, jnp.int32(rchar), luts, rluts)
+    return finalize_rows(*(np.asarray(x) for x in parts))

@@ -1,66 +1,33 @@
-"""Gather-free batched Huffman decode on TPU (v2 of ops/decode_jax.py).
+"""Batched Huffman decode of .dexqv entries (v2 of ops/decode_jax.py).
 
-The v1 decoder (decode_jax.py) peeks the container image with per-symbol
-byte gathers — on this TPU every gathered *element* costs ~16 cycles
-serialized, so a 16 MB batch took ~6.4 s/step.  v2 removes essentially all
-gathers from the per-symbol path:
+A Huffman stream is bit-serial, but a batch of entries is N independent
+chains once each entry's stream offsets are known (the native lens walk
+reports them).  This module holds the batch layout and the five-channel
+entry step:
 
-  * entries are decoded from a dense per-entry rectangle of little-endian
-    u32 words (N, K) — built once, host-side, at memcpy speed — so every
-    lane owns row-local state only;
-  * each fori iteration decodes a *group* (8 plain symbols / 3 run tokens)
-    out of a 12-word register window; the window is refreshed once per
-    group by a masked select+sum over the lane's own row (vector ops, zero
-    gathers), amortizing the only data-dependent access;
-  * the 64K peek table is replaced by a two-level lookup evaluated as
-    one-hot contractions: L1 over the top 8 window bits (256-wide), L2
-    over small subtables for codes longer than 8 bits — the same
-    MXU/VPU one-hot trick the encoder uses (ops/bitstream_jax._lut_gather);
-  * run expansion routes (runlen, literal) tokens to their columns through
-    a time-reversed shift-compaction network (``expand_monotone``) instead
-    of a per-element scatter;
-  * every channel decodes from its own word-aligned rectangle — the native
-    lens walk reports per-entry channel boundaries, so the host slices the
-    del/ins/mrg/sub words and the packed delTag bytes directly, fetch
-    traffic is per-channel, and run chains are bounded by exact token
-    counts rather than rlen.
+  * entries are decoded from dense per-channel rectangles of little-endian
+    u32 words (N, K), built host-side at memcpy speed, so every chain
+    reads only its own row and starts at word 0;
+  * codes resolve through two-level tables (``scheme_tables2``): L1 over
+    the top 8 window bits, L2 subtables for codes longer than 8 bits;
+  * run channels decode to (runlen, literal) token pairs, expanded to
+    symbol rows by a time-reversed shift-compaction network
+    (``expand_monotone``); the delTag codes ride the same network;
+  * the chains themselves run in the GPU kernel (ops/chain_gpu) on a GPU
+    backend, and as the XLA ``fori_loop`` formulation below elsewhere —
+    the CPU path and the reference the kernel is tested against.
 
 Semantics are identical to v1 (QV.c:510-691 decode contract, exercised by
-the golden C-oracle tests); only the execution strategy changes.  On CPU
-the one-hot contraction and masked-reduce degenerate to plain gathers
-(cheap there); set DEXTRACTOR_DECODE2_OH=1 to force the TPU-style path in
-tests.
+the in-repo reference tests); only the execution strategy differs.
 """
 
 from __future__ import annotations
 
 import functools
-import os
 
 import numpy as np
 import jax
 import jax.numpy as jnp
-
-from ..utils.dispatch import pallas_ok
-
-_FORCE_OH = os.environ.get("DEXTRACTOR_DECODE2_OH", "") == "1"
-
-
-def _use_gather() -> bool:
-    return (not _FORCE_OH) and jax.default_backend() == "cpu"
-
-
-def conveyor_mode() -> str | None:
-    """May the VMEM conveyor kernels dispatch, and how?
-
-    "tpu" -> real Mosaic kernels; "interpret" -> pallas interpret mode
-    (env DXT_CONVEYOR_INTERPRET=1 — CPU tests exercising the conveyor
-    code path, incl. under shard_map); None -> XLA chains."""
-    if pallas_ok():
-        return "tpu"
-    if os.environ.get("DXT_CONVEYOR_INTERPRET") == "1":
-        return "interpret"
-    return None
 
 
 # ---------------------------------------------------------------------------
@@ -106,53 +73,6 @@ def scheme_tables2(schemes, lmax_bucket: int | None = None):
     return f1, f2, subw, lmax
 
 
-def spec_table(sids, f1, f2, types, subw: int, lmax: int,
-               force: bool = False):
-    """Static per-channel speculation sets for the conveyor pair step.
-
-    Channel k's tuple is the set of possible BIT ADVANCES of one decoded
-    symbol of that channel's scheme: every distinct code length in its
-    L1/L2 tables, with escape entries (sym 255 of a type-2 scheme)
-    advancing len+8 for plain channels and len+16 for the run channels
-    (QV.c:510-599 plain, QV.c:604-691 run 16-bit length literal).
-    Host-side numpy over decode_tables_v2 outputs; returns a 6-tuple of
-    sorted int tuples in (del, drun, ins, mrg, sub, srun) order, passed
-    static into decode_entry_batch2/_seg.
-
-    DEFAULT OFF (DXT_PAIR=1 enables): the r5 chip A/B measured the pair
-    step a ~10% per-launch LOSS (run 0.325 -> 0.367 ms, plain 0.448 ->
-    0.477 ms; CHIP_r05 pair_step_speedup 1.007 on the full step) — the
-    1024-chain interleave already made the conveyor THROUGHPUT-bound,
-    so halving the serial depth buys nothing and the speculation's
-    extra peeks/gathers bill ~10%.  The machinery stays for narrower
-    batches (fewer chains = latency-bound again) and as the record of
-    the experiment the round-4 verdict asked for.
-    """
-    if not force and os.environ.get("DXT_PAIR", "0") != "1":
-        return None
-    f1 = np.asarray(f1)
-    f2 = np.asarray(f2)
-    out = []
-    for k in range(6):
-        s = int(np.asarray(sids)[k])
-        row = f1[s]
-        esc = int(np.asarray(types)[s]) == 2
-        extra = 16 if k in (1, 5) else 8
-        is2 = ((row >> 20) & 1) == 1
-        entries = [np.unique(row[~is2 & (row != 0)])]
-        if subw:
-            for sub_id in np.unique(row[is2] & 0xFFFF):
-                entries.append(np.unique(
-                    f2[sub_id * subw:(sub_id + 1) * subw]))
-        lens: set = set()
-        for e in np.concatenate(entries) if entries else []:
-            ln, sym = (int(e) >> 9) & 31, int(e) & 511
-            if ln:
-                lens.add(ln + extra if (esc and sym == 255) else ln)
-        out.append(tuple(sorted(lens)))
-    return tuple(out)
-
-
 def build_entry_rect(buf: np.ndarray, starts: np.ndarray, k_words: int):
     """Dense (N, K) little-endian u32 rectangle of per-entry bytes.
 
@@ -176,63 +96,16 @@ def rect_k_words(starts: np.ndarray, buf_len: int, pad_words: int = 16) -> int:
 
 
 # ---------------------------------------------------------------------------
-# gather-free device primitives
+# chain primitives
 # ---------------------------------------------------------------------------
 
-def _fetch12(rect, b0):
-    """Fetch rect words [4*b0, 4*b0+12) of each row as an (N, 12) u32 window.
-
-    TPU path: three masked select+sum passes over the row (zero gathers —
-    per-element gathers cost ~16 serialized cycles on this TPU)."""
-    n, k = rect.shape
-    rect4 = rect.reshape(n, k // 4, 4)
-    biota = jax.lax.broadcasted_iota(jnp.int32, (n, k // 4), 1)
-    blocks = []
-    for blk in range(3):
-        m = biota == (b0 + blk)[:, None]
-        blocks.append(jnp.where(m[:, :, None], rect4, jnp.uint32(0)).sum(
-            axis=1, dtype=jnp.uint32))
-    return jnp.concatenate(blocks, axis=1)               # (N, 12)
-
-
-def _sel12(regs, idx):
-    """regs[lane, idx[lane]] as one masked reduce (0 for out-of-range).
-
-    A chain of 12 selects compiles pathologically on XLA (superlinear in
-    chain depth); the single (N, 12) reduce is equivalent and cheap."""
-    lane = jax.lax.broadcasted_iota(jnp.int32, regs.shape, 1)
-    return jnp.where(lane == idx[:, None], regs, jnp.uint32(0)).sum(
-        axis=1, dtype=jnp.uint32)
-
-
-def _window_reader(rect):
-    """(refresh, read) pair for a word-aligned per-channel rectangle.
-
-    Every chain starts at word 0 of its own rectangle (the host slices
-    each channel's bytes via the native lens walk), so a stream-window
-    read is two plain word selects — no byte realignment.  TPU:
-    ``refresh(pos)`` loads a 12-word register window once per group
-    (masked reduce, zero gathers); CPU: ``read`` gathers directly."""
-    use_g = _use_gather()
+def _read(rect, pos):
+    """The two stream words under bit position pos of each row."""
     k = rect.shape[1]
-
-    def refresh(pos):
-        if use_g:
-            return None
-        b0 = pos >> 7                       # 4-word block of word pos>>5
-        return _fetch12(rect, b0), b0 << 2
-
-    def read(state, pos):
-        widx = pos >> 5
-        if use_g:
-            idx = jnp.clip(jnp.stack([widx, widx + 1], axis=1), 0, k - 1)
-            w = jnp.take_along_axis(rect, idx, axis=1)
-            return w[:, 0], w[:, 1]
-        regs, base = state
-        idx = widx - base
-        return _sel12(regs, idx), _sel12(regs, idx + 1)
-
-    return refresh, read
+    widx = pos >> 5
+    idx = jnp.clip(jnp.stack([widx, widx + 1], axis=1), 0, k - 1)
+    w = jnp.take_along_axis(rect, idx, axis=1)
+    return w[:, 0], w[:, 1]
 
 
 def _peek16(sw_a, sw_b, p):
@@ -253,24 +126,20 @@ def _extract(sw_a, sw_b, off, nbits: int):
     return (hi >> jnp.uint32(32 - nbits)).astype(jnp.int32)
 
 
-def _oh_lookup(tbl, idx):
-    """tbl[idx] with OOB -> 0; one-hot contraction on TPU, gather on CPU."""
+def _take(tbl, idx):
+    """tbl[idx] with out-of-range -> 0."""
     d = tbl.shape[0]
-    valid = (idx >= 0) & (idx < d)
-    if _use_gather():
-        return jnp.where(valid, tbl[jnp.clip(idx, 0, d - 1)], 0)
-    iota = jax.lax.broadcasted_iota(jnp.int32, (idx.shape[0], d), 1)
-    return jnp.where(iota == idx[:, None], tbl[None, :], 0).sum(axis=1)
+    return jnp.where((idx >= 0) & (idx < d), tbl[jnp.clip(idx, 0, d - 1)], 0)
 
 
 def _entry_lookup(cw, f1c, f2, subw: int, lmax: int):
     """(len << 9 | sym) for the 16-bit window cw via the two-level tables."""
-    e1 = _oh_lookup(f1c, cw >> 8)
+    e1 = _take(f1c, cw >> 8)
     if subw:
         is2 = (e1 >> 20) & 1
         idx2 = ((e1 & 0xFFFF) * subw
                 + ((cw >> (16 - lmax)) & (subw - 1)))
-        e2 = _oh_lookup(f2, jnp.where(is2 == 1, idx2, -1))
+        e2 = _take(f2, jnp.where(is2 == 1, idx2, -1))
         return jnp.where(is2 == 1, e2, e1)
     return e1
 
@@ -314,11 +183,7 @@ def expand_monotone(vals: tuple, disp, width: int, live0=None, *,
 
     Execution notes: value (``value_bits``, default 8), displacement
     (30 - value_bits bits) and liveness (1 bit, bit 30) are packed into
-    ONE i32 plane so each round is a single roll + selects, and every
-    round ends in an ``optimization_barrier`` — XLA:TPU miscompiles the
-    fused multi-round network at large widths (observed: width 8192,
-    ~8% of rows wrong while CPU and the round-snapshotted program are
-    exact), and pinning round boundaries restores correctness.
+    ONE i32 plane so each round is a single roll + selects.
     """
     n, t = disp.shape
     width = int(width)
@@ -367,7 +232,6 @@ def expand_monotone(vals: tuple, disp, width: int, live0=None, *,
             s = jnp.where(dst, rolled - (step << vb),
                           jnp.where(movers, s & ~_EXP_LIVE, s))
             state[0] = s
-        state = list(jax.lax.optimization_barrier(tuple(state)))
     if multi:
         return tuple(state[2:]), state[0]
     s = state[0]
@@ -380,52 +244,28 @@ def expand_monotone(vals: tuple, disp, width: int, live0=None, *,
 
 def plain_chain(rect, rlens, f1c, f2, signal, *, max_len: int,
                 subw: int, lmax: int, max_sym: int | None = None,
-                pos0=None, spec=None):
-    """Decode N plain streams, one per word-aligned rectangle row.
+                pos0=None):
+    """Decode N plain streams, one per word-aligned rectangle row (XLA).
 
-    Returns symbols (N, max_len) u8.  On accelerator backends the chains
-    run in the VMEM conveyor kernel (ops/decode_conveyor); the XLA
-    formulation below serves CPU and as the semantics reference.  Eight
-    symbols per window refresh: 8 * 24 bits worst case fits the 12-word
-    register window from any starting alignment.
+    Returns symbols (N, max_len) u8.  Eight symbols per loop iteration.
+    ``max_sym`` (static, the batch's bucketed longest read) caps the
+    serial steps below the padded row width.
 
     ``pos0`` (N,) i32 in [0, 32): each chain's starting bit offset within
     its rectangle — segment chains resume mid-stream from the native
     walker's checkpoints (rows are sliced at the checkpoint's word)."""
-    f2_rows = (f2.shape[0] + 127) // 128
-    # ``max_sym`` (static, the batch's bucketed longest read) caps the
-    # serial group-steps below the padded row width — pow2 row bucketing
-    # alone would run up to 2x dead steps past every chain's end
     ml = max_len if max_sym is None else min(max_len, max_sym)
-    # the conveyor keeps each chain's whole stream resident in VMEM —
-    # beyond 2048 words it drops sublane groups (G = 4/2/1, proportional
-    # chains-per-step) up to 16384 words (~60-130 kb reads); only past
-    # that does the windowed XLA chain below take over
-    cmode = conveyor_mode()
-    if (cmode and rect.shape[1] <= 16384
-            and (not subw or f2_rows <= 16)):
-        from .decode_conveyor import plain_chain_conveyor
-
-        out = plain_chain_conveyor(rect, rlens, f1c, f2, signal,
-                                   max_len=ml, subw=subw, lmax=lmax,
-                                   interpret=cmode == "interpret",
-                                   pos0=pos0, spec=spec)[0]
-        if ml < max_len:
-            out = jnp.pad(out, ((0, 0), (0, max_len - ml)))
-        return out
     n = rlens.shape[0]
     group_sz = 8
     groups = (ml + group_sz - 1) // group_sz
-    refresh, read = _window_reader(rect)
 
     def group(g, carry):
-        pos, last, out = carry
-        state = refresh(pos)
+        pos, out = carry
         syms = []
         jbase = g * group_sz
         for s in range(group_sz):
             active = (jbase + s) < rlens
-            sw_a, sw_b = read(state, pos)
+            sw_a, sw_b = _read(rect, pos)
             p = (pos & 31).astype(jnp.uint32)
             cw = _peek16(sw_a, sw_b, p)
             entry = _entry_lookup(cw, f1c, f2, subw, lmax)
@@ -434,93 +274,33 @@ def plain_chain(rect, rlens, f1c, f2, signal, *, max_len: int,
             esc = active & (sym == signal)
             lit = _extract(sw_a, sw_b, p + nbits.astype(jnp.uint32), 8)
             sym = jnp.where(esc, lit, sym)
-            width = jnp.where(esc, 8, nbits)
             pos = jnp.where(active, pos + jnp.where(esc, nbits + 8, nbits),
                             pos)
-            last = jnp.where(active, width, last)
             syms.append(jnp.where(active, sym, 0).astype(jnp.uint8))
         out = jax.lax.dynamic_update_slice(
             out, jnp.stack(syms, axis=1), (0, jbase))
-        return pos, last, out
+        return pos, out
 
     z = rlens * 0
     out0 = jnp.broadcast_to(z.astype(jnp.uint8)[:, None],
                             (n, groups * group_sz))
     p0 = z if pos0 is None else pos0.astype(z.dtype)
-    pos, last, out = jax.lax.fori_loop(0, groups, group, (p0, z, out0))
+    _, out = jax.lax.fori_loop(0, groups, group, (p0, out0))
     out = out[:, :ml]
     if ml < max_len:
         out = jnp.pad(out, ((0, 0), (0, max_len - ml)))
     return out
 
 
-def plain_chains(specs, rlens, f2, *, max_len: int, lmax: int,
-                 max_sym: int | None = None, pos0=None):
-    """Decode several plain channels, merging conveyor-eligible ones
-    that share an L2 need into ONE multi-channel launch (the chains are
-    latency-bound, so C channels in one serial walk cost far less than C
-    walks).  ``specs`` is a list of (key, rect, f1c, signal, subw,
-    spec_lens); ``pos0`` an optional {key: (N,) i32} of per-chain
-    starting bit offsets (segment decode); returns {key: (N, max_len)
-    u8 rows}.
-    """
-    out = {}
-    ml = max_len if max_sym is None else min(max_len, max_sym)
-    f2_rows = (f2.shape[0] + 127) // 128
-    singles = []
-    cmode = conveyor_mode()
-    if cmode:
-        from .decode_conveyor import plain_chains_conveyor
-
-        by_sw: dict = {}
-        for key, rect, f1c, sg, sw_k, sp_k in specs:
-            if rect.shape[1] <= 16384 and (not sw_k or f2_rows <= 16):
-                by_sw.setdefault(sw_k, []).append((key, rect, f1c, sg,
-                                                   sp_k))
-            else:
-                singles.append((key, rect, f1c, sg, sw_k, sp_k))
-        for sw_k, grp in by_sw.items():
-            if len(grp) == 1:      # reuse the single-channel program
-                g0 = grp[0]
-                singles.append(g0[:4] + (sw_k, g0[4]))
-                continue
-            # the merged launch speculates over the UNION of the group's
-            # advance sets (each slot's lookup already routes per-slot)
-            sps = [g[4] for g in grp]
-            sp_u = (None if any(s is None for s in sps)
-                    else tuple(sorted(set().union(*map(set, sps)))))
-            res = plain_chains_conveyor(
-                [g[1] for g in grp], rlens, [g[2] for g in grp], f2,
-                [g[3] for g in grp], max_len=ml, subw=sw_k, lmax=lmax,
-                interpret=cmode == "interpret", spec=sp_u,
-                pos0=None if pos0 is None else [pos0.get(g[0])
-                                                for g in grp])
-            for (key, *_), (syms, _, _) in zip(grp, res):
-                if ml < max_len:
-                    syms = jnp.pad(syms, ((0, 0), (0, max_len - ml)))
-                out[key] = syms
-    else:
-        singles = [s for s in specs]
-    for key, rect, f1c, sg, sw_k, sp_k in singles:
-        out[key] = plain_chain(rect, rlens, f1c, f2, sg, max_len=max_len,
-                               subw=sw_k, lmax=lmax, max_sym=max_sym,
-                               spec=sp_k,
-                               pos0=None if pos0 is None
-                               else pos0.get(key))
-    return out
-
-
 def run_chain(rect, rlens, f1r, f1s, f2, nsignal, *,
               max_tokens: int, subw: int, lmax: int, pos0=None,
-              carry=None, spec=None):
-    """Decode N RLE streams into (runlen, literal) token pairs.
+              carry=None):
+    """Decode N RLE streams into (runlen, literal) token pairs (XLA).
 
-    Three tokens per window refresh (3 * 56 bits worst case fits the
-    12-word window).  ``max_tokens`` comes from the native lens walk's
-    exact per-entry token counts, so the chain length is tight rather
-    than bounded by rlen.  Token semantics match
-    decode_jax.decode_run_batch.  On accelerator backends the chains run
-    in the VMEM conveyor kernel (ops/decode_conveyor).
+    Three tokens per loop iteration.  ``max_tokens`` comes from the
+    native lens walk's exact per-entry token counts, so the chain length
+    is tight rather than bounded by rlen.  Token semantics match
+    decode_jax.decode_run_batch.
 
     Segment chains (``pos0``/``carry`` from the walker's checkpoints):
     the chain starts at bit ``pos0`` and, when ``carry >= 0``, its first
@@ -528,30 +308,17 @@ def run_chain(rect, rlens, f1r, f1s, f2, nsignal, *,
     inside a run resumes with the leftover rchars prepended and the
     stream positioned AT the run's literal code; carry < 0 starts at a
     run code normally."""
-    f2_rows = (f2.shape[0] + 127) // 128
-    cmode = conveyor_mode()
-    if (cmode and rect.shape[1] <= 16384
-            and (not subw or f2_rows <= 16)):
-        from .decode_conveyor import run_chain_conveyor
-
-        return run_chain_conveyor(rect, rlens, f1r, f1s, f2, nsignal,
-                                  max_tokens=max_tokens, subw=subw,
-                                  lmax=lmax,
-                                  interpret=cmode == "interpret",
-                                  pos0=pos0, carry=carry, spec=spec)[:2]
     n = rlens.shape[0]
     group_sz = 3
     groups = (max_tokens + group_sz - 1) // group_sz
     t_pad = groups * group_sz
-    refresh, read = _window_reader(rect)
 
     def group(g, st):
-        pos, emitted, last, runs, lits = st
-        state = refresh(pos)
+        pos, emitted, runs, lits = st
         rcols, lcols = [], []
         for s in range(group_sz):
             active = emitted < rlens
-            sw_a, sw_b = read(state, pos)
+            sw_a, sw_b = _read(rect, pos)
             p = (pos & 31).astype(jnp.uint32)
             cw = _peek16(sw_a, sw_b, p)
             entry = _entry_lookup(cw, f1r, f2, subw, lmax)
@@ -560,7 +327,6 @@ def run_chain(rect, rlens, f1r, f1s, f2, nsignal, *,
             resc = active & (c == 255)
             runlit = _extract(sw_a, sw_b, p + nb.astype(jnp.uint32), 16)
             runlen = jnp.where(resc, runlit, c)
-            width = jnp.where(resc, 16, nb)
             if carry is not None and s == 0:
                 # segment phase: the first token of the chain is the
                 # checkpoint's virtual (carry, literal) pair — no run
@@ -576,7 +342,7 @@ def run_chain(rect, rlens, f1r, f1s, f2, nsignal, *,
             emitted1 = jnp.minimum(emitted + runlen, rlens)
 
             need_sym = active & (emitted1 < rlens)
-            sw_a, sw_b = read(state, pos)
+            sw_a, sw_b = _read(rect, pos)
             p = (pos & 31).astype(jnp.uint32)
             cw2 = _peek16(sw_a, sw_b, p)
             entry2 = _entry_lookup(cw2, f1s, f2, subw, lmax)
@@ -587,11 +353,9 @@ def run_chain(rect, rlens, f1r, f1s, f2, nsignal, *,
             sym = jnp.where(sesc, slit, sym)
             pos = pos + jnp.where(need_sym,
                                   snb + jnp.where(sesc, 8, 0), 0)
-            width = jnp.where(need_sym, jnp.where(sesc, 8, snb), width)
 
             rcols.append(jnp.where(active, runlen, 0))
             lcols.append(jnp.where(need_sym, sym, -1))
-            last = jnp.where(active, width, last)
             emitted = jnp.where(active,
                                 emitted1 + need_sym.astype(jnp.int32),
                                 emitted)
@@ -600,36 +364,97 @@ def run_chain(rect, rlens, f1r, f1s, f2, nsignal, *,
             runs, jnp.stack(rcols, axis=1), (0, jbase))
         lits = jax.lax.dynamic_update_slice(
             lits, jnp.stack(lcols, axis=1), (0, jbase))
-        return pos, emitted, last, runs, lits
+        return pos, emitted, runs, lits
 
     z = rlens * 0
     runs0 = jnp.broadcast_to(z[:, None], (n, t_pad))
     lits0 = runs0 - 1
     p0 = z if pos0 is None else pos0.astype(z.dtype)
-    pos, emitted, last, runs, lits = jax.lax.fori_loop(
-        0, groups, group, (p0, z, z, runs0, lits0))
+    _, _, runs, lits = jax.lax.fori_loop(
+        0, groups, group, (p0, z, runs0, lits0))
     return runs, lits
 
 
-def _expand_dispatch(runs, lits, rchar, *, max_len: int):
-    """Route run expansion to the VMEM Pallas network on accelerators
-    (no per-round HBM barriers); the XLA formulation stays the CPU path
-    and the fallback.  Chip-validated byte-exact and a 1.045x step win
-    under the merged-chain decode (tools/chip_probe.py A/B), so ON by
-    default on TPU (the Mosaic kernel is TPU-only — a GPU backend takes
-    the XLA network); env DXT_EXPAND_PALLAS=0 forces the XLA network."""
-    import os
+def _signal(types, sid):
+    """Escape symbol of a scheme: 255 for type-2 schemes, else none."""
+    return jnp.where(types[sid] == 2, 255, 256)
 
-    if (jax.default_backend() == "tpu"
-            and max(max_len, runs.shape[1]) <= 16384
-            and os.environ.get("DXT_EXPAND_PALLAS", "1") == "1"):
-        # width cap: the VMEM kernel holds (B, width) i32 planes and its
-        # roll network is chip-validated to bench widths; long-read
-        # buckets (wider planes, few rows) take the XLA network
-        from .expand_pallas import expand_runs_pallas
 
-        return expand_runs_pallas(runs, lits, rchar, max_len=max_len)
-    return expand_runs2(runs, lits, rchar, max_len=max_len)
+def _stack_lanes(rects, vecs_per_chan):
+    """Concatenate C channels' chains into one lane batch (rect widths
+    padded to the widest channel)."""
+    kw = max(r.shape[1] for r in rects)
+    rect = jnp.concatenate([jnp.pad(r, ((0, 0), (0, kw - r.shape[1])))
+                            for r in rects])
+    vecs = tuple(jnp.concatenate(v) for v in zip(*vecs_per_chan))
+    return rect, vecs
+
+
+def plain_chains(specs, rlens, f1, f2, types, *, max_len: int, lmax: int,
+                 max_sym: int | None = None, pos0=None,
+                 kernel: str | None = None):
+    """Decode several plain channels of one batch of entries.
+
+    ``specs`` is a list of (key, rect, sid, subw) with ``sid`` the
+    channel's row of ``f1`` (S, 256); ``pos0`` an optional {key: (N,) i32}
+    of per-chain starting bit offsets (segment decode).  With ``kernel``
+    ("gpu", or "interpret" in CPU tests) every channel's chains run as
+    lanes of ONE launch of the GPU chain kernel; otherwise each channel
+    runs the XLA chain.  Returns {key: (N, max_len) u8 rows}."""
+    ml = max_len if max_sym is None else min(max_len, max_sym)
+    n = rlens.shape[0]
+    z = rlens * 0
+    if not kernel:
+        return {key: plain_chain(
+            rect, rlens, f1[sid], f2, _signal(types, sid), max_len=max_len,
+            subw=sw, lmax=lmax, max_sym=max_sym,
+            pos0=None if pos0 is None else pos0.get(key))
+            for key, rect, sid, sw in specs}
+    from .chain_gpu import plain_chains_gpu
+
+    rect, (rl, sids, sigs, p0) = _stack_lanes(
+        [sp[1] for sp in specs],
+        [(rlens, z + sid, z + _signal(types, sid),
+          z if pos0 is None else pos0[key].astype(z.dtype))
+         for key, _, sid, _ in specs])
+    rows, _, _ = plain_chains_gpu(
+        rect, rl, sids, sigs, p0, f1, f2, max_len=ml,
+        subw=max(sp[3] for sp in specs), lmax=lmax,
+        interpret=kernel == "interpret")
+    if ml < max_len:
+        rows = jnp.pad(rows, ((0, 0), (0, max_len - ml)))
+    return {sp[0]: rows[i * n:(i + 1) * n] for i, sp in enumerate(specs)}
+
+
+def run_chains(specs, rlens, f1, f2, types, *, max_tokens: int, lmax: int,
+               kernel: str | None = None):
+    """Decode several run channels of one batch into token pairs.
+
+    ``specs`` is a list of (key, rect, run_sid, sym_sid, subw, pos0,
+    carry) (pos0/carry None outside segment decode).  As
+    ``plain_chains``, the GPU kernel decodes all channels in one launch.
+    Returns {key: (runs, lits)} with at least ``max_tokens`` columns."""
+    if not kernel:
+        return {key: run_chain(
+            rect, rlens, f1[rsid], f1[ssid], f2, _signal(types, ssid),
+            max_tokens=max_tokens, subw=sw, lmax=lmax, pos0=p0, carry=cr)
+            for key, rect, rsid, ssid, sw, p0, cr in specs}
+    from .chain_gpu import run_chains_gpu
+
+    n = rlens.shape[0]
+    z = rlens * 0
+    rect, (rl, rsids, ssids, sigs, p0, cr) = _stack_lanes(
+        [sp[1] for sp in specs],
+        [(rlens, z + rsid, z + ssid, z + _signal(types, ssid),
+          z if p0 is None else p0.astype(z.dtype),
+          z - 1 if cr is None else cr.astype(z.dtype))
+         for _, _, rsid, ssid, _, p0, cr in specs])
+    runs, lits, _, _ = run_chains_gpu(
+        rect, rl, rsids, ssids, sigs, p0, cr, f1, f2,
+        max_tokens=max_tokens, subw=max(sp[4] for sp in specs), lmax=lmax,
+        interpret=kernel == "interpret")
+    return {sp[0]: (runs[i * n:(i + 1) * n], lits[i * n:(i + 1) * n])
+            for i, sp in enumerate(specs)}
 
 
 def _unpack_tag_codes(tag_bytes, width: int):
@@ -704,175 +529,62 @@ def expand_runs2(runs, lits, rchar, *, max_len: int):
 # fused five-channel entry decode
 # ---------------------------------------------------------------------------
 
-@functools.partial(
-    jax.jit, static_argnames=("max_len", "max_tokens", "del_mode",
-                              "sub_mode", "subw", "lmax", "chan_l2",
-                              "max_sym", "spec"))
-def decode_entry_batch2(rect_del, tag_bytes, rect_ins, rect_mrg, rect_sub,
-                        rlens, sids, f1, f2, types, del_char, sub_char, *,
-                        max_len: int, max_tokens: int, del_mode: str,
-                        sub_mode: str, subw: int, lmax: int,
-                        chan_l2: tuple | None = None,
-                        max_sym: int | None = None,
-                        spec: tuple | None = None):
-    """Fully fused five-channel .dexqv entry decode, gather-free.
+def _entry_rows(rect_del, tag_in, rect_ins, rect_mrg, rect_sub, chain_rlens,
+                rlens, sids, f1, f2, types, del_char, sub_char, *,
+                chain_len: int, max_len: int, max_tokens: int,
+                del_mode: str, sub_mode: str, subw: int, lmax: int,
+                chan_l2, max_sym, pos0, carr, widen, tag_codes,
+                kernel: str | None):
+    """Shared body of the per-read and segmented entry decodes.
 
-    Each channel decodes from its own word-aligned rectangle (the native
-    lens walk supplies per-entry channel boundaries, so the host slices
-    them at memcpy speed): every chain starts at word 0, fetch traffic is
-    proportional to the channel being decoded rather than the whole entry,
-    and the packed delTag bytes arrive pre-sliced (no on-device byte
-    realignment).
-
-    rect_del/ins/mrg/sub: (N, K_c) u32 channel words; tag_bytes (N, TB) u8
-    with 4*TB >= max_len; rlens (N,) i32; sids (6,) i32 scheme ids
-    (del, drun, ins, mrg, sub, srun); f1 (S, 256) i32 L1 tables; f2 flat
-    i32 L2; types (S,) i32.
-
-    Semantics identical to the sequential decoder (QV.c:1428-1477 raw
-    container case): returns (5, N, max_len) u8 rows."""
+    Chains are rows of the rectangles (``chain_rlens`` symbols each,
+    ``chain_len`` wide); ``widen`` maps chain rows to (N, max_len) read
+    rows.  ``tag_codes(runs)`` gives the delTag codes aligned with the
+    del run tokens (run-del mode)."""
     n = rlens.shape[0]
-    f1c = [jnp.take(f1, sids[k], axis=0) for k in range(6)]
-    sig = [jnp.where(types[sids[k]] == 2, 255, 256) for k in range(6)]
     # per-channel L2 need (host-computed static): channels whose scheme is
-    # fully L1-terminal skip the escape-table mux entirely
+    # fully L1-terminal skip the escape-table lookup entirely
     sw = [subw if (chan_l2 is None or chan_l2[k]) else 0 for k in range(6)]
     col = jax.lax.broadcasted_iota(jnp.int32, (n, max_len), 1)
     in_read = col < rlens[:, None]
+    p0 = (lambda c: None) if pos0 is None else (lambda c: pos0[c])
+    cr = (lambda c: None) if carr is None else (lambda c: carr[c])
+
+    # the plain channels (ins, mrg, and del/sub when not run-coded) and
+    # the run channels each decode as one batch of chains
+    plain = [("ins", rect_ins, sids[2], sw[2], 1),
+             ("mrg", rect_mrg, sids[3], sw[3], 2)]
+    runs = []
+    if del_mode == "run":
+        runs.append(("del", rect_del, sids[1], sids[0], max(sw[0], sw[1]),
+                     p0(0), cr(0)))
+    else:
+        plain.append(("del", rect_del, sids[0], sw[0], 0))
+    if sub_mode == "run":
+        runs.append(("sub", rect_sub, sids[5], sids[4], max(sw[4], sw[5]),
+                     p0(3), cr(1)))
+    else:
+        plain.append(("sub", rect_sub, sids[4], sw[4], 3))
+    prows = plain_chains(
+        [sp[:4] for sp in plain], chain_rlens, f1, f2, types,
+        max_len=chain_len, lmax=lmax, max_sym=max_sym, kernel=kernel,
+        pos0=None if pos0 is None else {sp[0]: pos0[sp[4]]
+                                        for sp in plain})
+    toks = run_chains(runs, chain_rlens, f1, f2, types,
+                      max_tokens=max_tokens, lmax=lmax,
+                      kernel=kernel) if runs else {}
 
     # -- delQV + delTag -------------------------------------------------
     # Run mode: kept-rank == token index (literals are exactly the
     # non-delChar symbols), so the positionally-unpacked tag codes ride
     # the run-expansion network alongside the literals — no keep-cumsum,
-    # no rank gather, no separate tag kernel.  Plain mode: every in-read
-    # position is kept, so the tag is a direct positional unpack.
-    # the plain channels (ins, mrg, and del/sub when not run-coded) merge
-    # into one multi-channel conveyor launch — one serial symbol walk for
-    # all of them (plain_chains groups by L2 need)
-    sp = spec if spec is not None else (None,) * 6
-    specs = [("ins", rect_ins, f1c[2], sig[2], sw[2], sp[2]),
-             ("mrg", rect_mrg, f1c[3], sig[3], sw[3], sp[3])]
-    if del_mode != "run":
-        specs.append(("del", rect_del, f1c[0], sig[0], sw[0], sp[0]))
-    if sub_mode != "run":
-        specs.append(("sub", rect_sub, f1c[4], sig[4], sw[4], sp[4]))
-    prows = plain_chains(specs, rlens, f2, max_len=max_len, lmax=lmax,
-                         max_sym=max_sym)
-    ins_rows = prows["ins"]
-    mrg_rows = prows["mrg"]
-
+    # no rank gather.  Plain mode: every in-read position is kept, so the
+    # tag is a direct positional unpack.
     if del_mode == "run":
-        runs, lits = run_chain(
-            rect_del, rlens, f1c[1], f1c[0], f2, sig[0],
-            max_tokens=max_tokens, subw=max(sw[0], sw[1]), lmax=lmax,
-            spec=sp[1])
-        codes_t = _unpack_tag_codes(tag_bytes, runs.shape[1])
-        del_rows, tag_r = expand_del_tag(runs, lits, codes_t, del_char,
-                                         max_len=max_len)
-        tag_rows = jnp.where(
-            tag_r >= 0, tag_r,
-            jnp.where(in_read, np.int32(ord("n")), 0)).astype(jnp.uint8)
-        tag_rows = jnp.where(in_read, tag_rows, jnp.uint8(0))
-    else:
-        del_rows = prows["del"]
-        codes = _unpack_tag_codes(tag_bytes, max_len)
-        tag_rows = jnp.where(in_read, _tag_letters(codes),
-                             0).astype(jnp.uint8)
-
-    if sub_mode == "run":
-        sruns, slits = run_chain(
-            rect_sub, rlens, f1c[5], f1c[4], f2, sig[4],
-            max_tokens=max_tokens, subw=max(sw[4], sw[5]), lmax=lmax,
-            spec=sp[5])
-        sub_rows = _expand_dispatch(sruns, slits, sub_char, max_len=max_len)
-    else:
-        sub_rows = prows["sub"]
-
-    z = jnp.uint8(0)
-    mask = lambda r: jnp.where(in_read, r, z)
-    return jnp.stack([mask(del_rows), tag_rows, mask(ins_rows),
-                      mask(mrg_rows), mask(sub_rows)])
-
-# ---------------------------------------------------------------------------
-# segmented five-channel entry decode (long reads)
-# ---------------------------------------------------------------------------
-
-@functools.partial(
-    jax.jit, static_argnames=("seg", "s_per", "max_len", "max_tokens",
-                              "del_mode", "sub_mode", "subw", "lmax",
-                              "chan_l2", "spec"))
-def decode_entry_batch_seg(rect_del, tag_in, rect_ins, rect_mrg, rect_sub,
-                           rlens, seg_rlens, pos0, carr, sids, f1, f2,
-                           types, del_char, sub_char, *, seg: int,
-                           s_per: int, max_len: int, max_tokens: int,
-                           del_mode: str, sub_mode: str, subw: int,
-                           lmax: int, chan_l2: tuple | None = None,
-                           spec: tuple | None = None):
-    """Segmented fused five-channel .dexqv decode.
-
-    Long reads decode as ``s_per`` independent SHORT chains per read from
-    the native walker's checkpoints (qv_codec._index_checkpoints) instead
-    of one long one — the conveyor's per-group costs scale with stream
-    residency (K), so reads of any length run at the proven short-chain
-    geometry (the reference's envelope: per-read cost independent of
-    length, QV.c:510-691 + realloc growth).  Chain rows are segment-major
-    (read r, segment k) -> row r * s_per + k; every read owns exactly
-    ``s_per`` segment rows (dead ones have seg_rlens 0 and cost no serial
-    steps), so the (NS, seg) symbol rows reshape EXACTLY to
-    (N, s_per * seg) and slice to max_len.
-
-    rect_*: (NS, K_c) u32 segment rectangles (sliced at each checkpoint's
-    word); tag_in: (N, TB) u8 packed tag bytes (plain-del mode) or
-    (NS, Tt) i32 per-segment tag codes (run-del mode, codes t0..t0+Tt of
-    the read's global kept-rank sequence); rlens (N,); seg_rlens (NS,);
-    pos0 (4, NS) per-channel starting bit offsets in [0, 32); carr
-    (2, NS) del/sub run carries (-1 = start at a run code; >= 0 = the
-    checkpoint fell inside a run: prepend that many rchars and read the
-    literal first).  Returns (5, N, max_len) u8 rows."""
-    n = rlens.shape[0]
-    ns = seg_rlens.shape[0]
-    f1c = [jnp.take(f1, sids[k], axis=0) for k in range(6)]
-    sig = [jnp.where(types[sids[k]] == 2, 255, 256) for k in range(6)]
-    sw = [subw if (chan_l2 is None or chan_l2[k]) else 0 for k in range(6)]
-    col = jax.lax.broadcasted_iota(jnp.int32, (n, max_len), 1)
-    in_read = col < rlens[:, None]
-
-    def widen(rows_seg):
-        """(NS, seg) segment rows -> (N, max_len) read rows."""
-        r = rows_seg.reshape(n, s_per * seg)
-        if s_per * seg < max_len:      # short-read bucket under the
-            r = jnp.pad(r, ((0, 0), (0, max_len - s_per * seg)))
-        return r[:, :max_len]          # 512-floor of the width bucket
-
-    sp = spec if spec is not None else (None,) * 6
-    specs = [("ins", rect_ins, f1c[2], sig[2], sw[2], sp[2]),
-             ("mrg", rect_mrg, f1c[3], sig[3], sw[3], sp[3])]
-    p0s = {"ins": pos0[1], "mrg": pos0[2]}
-    if del_mode != "run":
-        specs.append(("del", rect_del, f1c[0], sig[0], sw[0], sp[0]))
-        p0s["del"] = pos0[0]
-    if sub_mode != "run":
-        specs.append(("sub", rect_sub, f1c[4], sig[4], sw[4], sp[4]))
-        p0s["sub"] = pos0[3]
-    prows = plain_chains(specs, seg_rlens, f2, max_len=seg, lmax=lmax,
-                         pos0=p0s)
-    ins_rows = widen(prows["ins"])
-    mrg_rows = widen(prows["mrg"])
-
-    if del_mode == "run":
-        runs, lits = run_chain(
-            rect_del, seg_rlens, f1c[1], f1c[0], f2, sig[0],
-            max_tokens=max_tokens, subw=max(sw[0], sw[1]), lmax=lmax,
-            pos0=pos0[0], carry=carr[0], spec=sp[1])
-        tp = runs.shape[1]
-        codes_t = tag_in[:, :tp]
-        if codes_t.shape[1] < tp:
-            codes_t = jnp.pad(codes_t,
-                              ((0, 0), (0, tp - codes_t.shape[1])))
-        del_rows_s, tag_r_s = expand_del_tag(runs, lits, codes_t, del_char,
-                                             max_len=seg)
-        del_rows = widen(del_rows_s)
-        tag_r = widen(tag_r_s)
+        druns, dlits = toks["del"]
+        del_rows, tag_r = expand_del_tag(druns, dlits, tag_codes(druns),
+                                         del_char, max_len=chain_len)
+        del_rows, tag_r = widen(del_rows), widen(tag_r)
         tag_rows = jnp.where(
             tag_r >= 0, tag_r,
             jnp.where(in_read, np.int32(ord("n")), 0)).astype(jnp.uint8)
@@ -884,16 +596,109 @@ def decode_entry_batch_seg(rect_del, tag_in, rect_ins, rect_mrg, rect_sub,
                              0).astype(jnp.uint8)
 
     if sub_mode == "run":
-        sruns, slits = run_chain(
-            rect_sub, seg_rlens, f1c[5], f1c[4], f2, sig[4],
-            max_tokens=max_tokens, subw=max(sw[4], sw[5]), lmax=lmax,
-            pos0=pos0[3], carry=carr[1], spec=sp[5])
-        sub_rows = widen(_expand_dispatch(sruns, slits, sub_char,
-                                          max_len=seg))
+        sub_rows = widen(expand_runs2(*toks["sub"], sub_char,
+                                      max_len=chain_len))
     else:
         sub_rows = widen(prows["sub"])
 
     z = jnp.uint8(0)
     mask = lambda r: jnp.where(in_read, r, z)
-    return jnp.stack([mask(del_rows), tag_rows, mask(ins_rows),
-                      mask(mrg_rows), mask(sub_rows)])
+    return jnp.stack([mask(del_rows), tag_rows, mask(widen(prows["ins"])),
+                      mask(widen(prows["mrg"])), mask(sub_rows)])
+
+
+@functools.partial(
+    jax.jit, static_argnames=("max_len", "max_tokens", "del_mode",
+                              "sub_mode", "subw", "lmax", "chan_l2",
+                              "max_sym", "kernel"))
+def decode_entry_batch2(rect_del, tag_bytes, rect_ins, rect_mrg, rect_sub,
+                        rlens, sids, f1, f2, types, del_char, sub_char, *,
+                        max_len: int, max_tokens: int, del_mode: str,
+                        sub_mode: str, subw: int, lmax: int,
+                        chan_l2: tuple | None = None,
+                        max_sym: int | None = None,
+                        kernel: str | None = None):
+    """Fully fused five-channel .dexqv entry decode.
+
+    Each channel decodes from its own word-aligned rectangle (the native
+    lens walk supplies per-entry channel boundaries, so the host slices
+    them at memcpy speed): every chain starts at word 0, fetch traffic is
+    proportional to the channel being decoded rather than the whole entry,
+    and the packed delTag bytes arrive pre-sliced (no on-device byte
+    realignment).
+
+    rect_del/ins/mrg/sub: (N, K_c) u32 channel words; tag_bytes (N, TB) u8
+    with 4*TB >= max_len; rlens (N,) i32; sids (6,) i32 scheme ids
+    (del, drun, ins, mrg, sub, srun); f1 (S, 256) i32 L1 tables; f2 flat
+    i32 L2; types (S,) i32.  ``kernel`` (static, from
+    utils.dispatch.chain_kernel) runs the chains in the GPU kernel.
+
+    Semantics identical to the sequential decoder (QV.c:1428-1477 raw
+    container case): returns (5, N, max_len) u8 rows."""
+    return _entry_rows(
+        rect_del, tag_bytes, rect_ins, rect_mrg, rect_sub, rlens, rlens,
+        sids, f1, f2, types, del_char, sub_char, chain_len=max_len,
+        max_len=max_len, max_tokens=max_tokens, del_mode=del_mode,
+        sub_mode=sub_mode, subw=subw, lmax=lmax, chan_l2=chan_l2,
+        max_sym=max_sym, pos0=None, carr=None, widen=lambda r: r,
+        tag_codes=lambda runs: _unpack_tag_codes(tag_bytes, runs.shape[1]),
+        kernel=kernel)
+
+
+# ---------------------------------------------------------------------------
+# segmented five-channel entry decode (long reads)
+# ---------------------------------------------------------------------------
+
+@functools.partial(
+    jax.jit, static_argnames=("seg", "s_per", "max_len", "max_tokens",
+                              "del_mode", "sub_mode", "subw", "lmax",
+                              "chan_l2", "kernel"))
+def decode_entry_batch_seg(rect_del, tag_in, rect_ins, rect_mrg, rect_sub,
+                           rlens, seg_rlens, pos0, carr, sids, f1, f2,
+                           types, del_char, sub_char, *, seg: int,
+                           s_per: int, max_len: int, max_tokens: int,
+                           del_mode: str, sub_mode: str, subw: int,
+                           lmax: int, chan_l2: tuple | None = None,
+                           kernel: str | None = None):
+    """Segmented fused five-channel .dexqv decode.
+
+    Long reads decode as ``s_per`` independent SHORT chains per read from
+    the native walker's checkpoints (qv_codec._index_checkpoints) instead
+    of one long one, so a batch of long reads has many chains and every
+    chain is short.  Chain rows are segment-major (read r, segment k) ->
+    row r * s_per + k; every read owns exactly ``s_per`` segment rows
+    (dead ones have seg_rlens 0 and cost no serial steps), so the
+    (NS, seg) symbol rows reshape EXACTLY to (N, s_per * seg) and slice to
+    max_len.
+
+    rect_*: (NS, K_c) u32 segment rectangles (sliced at each checkpoint's
+    word); tag_in: (N, TB) u8 packed tag bytes (plain-del mode) or
+    (NS, Tt) i32 per-segment tag codes (run-del mode, codes t0..t0+Tt of
+    the read's global kept-rank sequence); rlens (N,); seg_rlens (NS,);
+    pos0 (4, NS) per-channel starting bit offsets in [0, 32); carr
+    (2, NS) del/sub run carries (-1 = start at a run code; >= 0 = the
+    checkpoint fell inside a run: prepend that many rchars and read the
+    literal first).  Returns (5, N, max_len) u8 rows."""
+    n = rlens.shape[0]
+
+    def widen(rows_seg):
+        """(NS, seg) segment rows -> (N, max_len) read rows."""
+        r = rows_seg.reshape(n, s_per * seg)
+        if s_per * seg < max_len:      # short-read bucket under the
+            r = jnp.pad(r, ((0, 0), (0, max_len - s_per * seg)))
+        return r[:, :max_len]          # 512-floor of the width bucket
+
+    def tag_codes(runs):
+        tp = runs.shape[1]
+        codes_t = tag_in[:, :tp]
+        if codes_t.shape[1] < tp:
+            codes_t = jnp.pad(codes_t, ((0, 0), (0, tp - codes_t.shape[1])))
+        return codes_t
+
+    return _entry_rows(
+        rect_del, tag_in, rect_ins, rect_mrg, rect_sub, seg_rlens, rlens,
+        sids, f1, f2, types, del_char, sub_char, chain_len=seg,
+        max_len=max_len, max_tokens=max_tokens, del_mode=del_mode,
+        sub_mode=sub_mode, subw=subw, lmax=lmax, chan_l2=chan_l2,
+        max_sym=None, pos0=pos0, carr=carr, widen=widen,
+        tag_codes=tag_codes, kernel=kernel)

@@ -1,5 +1,5 @@
-"""Batched Huffman decode on TPU: one token chain per read, reads in
-parallel.
+"""Batched Huffman decode in XLA: one token chain per read, reads in
+parallel (the CPU path of the multi-scheme DB decode).
 
 A single Huffman stream is bit-serial, but a Dazzler DB stores every read's
 stream offset (``coff`` in .idx), and within an entry the later streams'

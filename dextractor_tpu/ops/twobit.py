@@ -13,11 +13,10 @@ Two implementations are provided:
 
 - ``*_np``: vectorized NumPy for the host control plane (container assembly,
   tests) — already memory-bandwidth bound on CPU.
-- ``pack_2bit``/``unpack_2bit``: jitted JAX for the TPU data plane.  These are
-  pure element-wise shift/mask ops on u8 lanes; XLA maps them onto the VPU
-  with (32,128) int8 tiling and fuses neighbouring elementwise stages, so a
-  dedicated Pallas kernel is unnecessary for this op — the fused pipeline in
-  ``codecs`` keeps it HBM-bandwidth bound.
+- ``pack_2bit``/``unpack_2bit``: jitted JAX for the device data plane.  These
+  are pure element-wise shift/mask ops on u8 lanes that XLA fuses with
+  neighbouring elementwise stages, so the fused pipeline in ``codecs``
+  stays bound by device-memory bandwidth without a dedicated kernel.
 """
 
 from __future__ import annotations
@@ -124,12 +123,12 @@ def unpack_2bit_np(packed: np.ndarray) -> np.ndarray:
 
 
 # ---------------------------------------------------------------------------
-# JAX / TPU implementations
+# JAX device implementations
 # ---------------------------------------------------------------------------
 
 @functools.partial(jax.jit, static_argnames=("mask",))
 def pack_2bit(codes: jax.Array, lengths: jax.Array | None = None, *, mask: bool = True) -> jax.Array:
-    """TPU 2-bit pack of (N, L) u8 codes -> (N, L//4) u8 bytes.
+    """Device 2-bit pack of (N, L) u8 codes -> (N, L//4) u8 bytes.
 
     Pure VPU shifts; when ``mask`` and lengths are provided, padding lanes
     are zeroed so the tail byte matches the reference semantics.
@@ -146,7 +145,7 @@ def pack_2bit(codes: jax.Array, lengths: jax.Array | None = None, *, mask: bool 
 
 @jax.jit
 def unpack_2bit(packed: jax.Array) -> jax.Array:
-    """TPU 2-bit unpack of (N, C) u8 bytes -> (N, 4*C) u8 codes."""
+    """Device 2-bit unpack of (N, C) u8 bytes -> (N, 4*C) u8 codes."""
     n, c = packed.shape
     shifts = jnp.array([6, 4, 2, 0], jnp.uint8)
     codes = (packed[..., None] >> shifts) & jnp.uint8(3)
@@ -157,8 +156,6 @@ def unpack_2bit(packed: jax.Array) -> jax.Array:
 def unpack_translate(packed: jax.Array, lut: jax.Array) -> jax.Array:
     """Fused 2-bit unpack + letter map: (N, C) u8 -> (N, 4*C) ascii.
 
-    ``unpack_2bit`` followed by a 256-entry gather costs ~16 cycles per
-    element on this TPU (the gather dominates the .dexta decode step).
     Codes are 2-bit, so the table collapses to one u32 holding the four
     letters and the gather to a variable byte shift; the four per-shift
     letter planes recombine into u32 words whose little-endian bitcast

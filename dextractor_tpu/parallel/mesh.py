@@ -1,10 +1,11 @@
 """Device mesh construction and shardings.
 
 The only parallelism axis in this domain is *reads* — entries are
-independent, so the mesh is a 1-D data axis over all chips (the moral
+independent, so the mesh is a 1-D data axis over all cards (the moral
 equivalent of the reference's DB block partitioning, DB.h:380-383).
-Within a slice the axis rides ICI; across hosts, `jax.distributed`
-initialization extends the same mesh over DCN.
+The cards of one host are joined all to all by NVLink, so the axis needs
+no topology; across hosts, `jax.distributed` initialization extends the
+same mesh.
 """
 
 from __future__ import annotations

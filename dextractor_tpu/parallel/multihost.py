@@ -1,8 +1,8 @@
 """Multi-host runtime: jax.distributed initialization + ordered gather.
 
-The tpu-native replacement for the reference's HPC job-array fan-out
+The device-parallel replacement for the reference's HPC job-array fan-out
 (Block_Looper, DB.c:2657-2923): one mesh spanning all hosts, with the data
-axis over ICI within a slice and DCN across slices (SURVEY §5).
+axis over the cards of a host (NVLink) and across hosts (SURVEY §5).
 """
 
 from __future__ import annotations

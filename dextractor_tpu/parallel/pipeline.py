@@ -1,7 +1,7 @@
 """The flagship sharded codec pipeline.
 
-Production flow for .dexqv at scale (the TPU equivalent of the reference's
-serial two-pass dexqv.c:79-143):
+Production flow for .dexqv at scale (the data-parallel form of the
+reference's serial two-pass dexqv.c:79-143):
 
   phase A  ``sharded_qv_scan``  — every shard histograms its entries; the
            six 256-bin tables are ``psum``-reduced over the data axis so all
@@ -16,7 +16,7 @@ serial two-pass dexqv.c:79-143):
 
 Both phases are `shard_map`-ed over a 1-D data mesh; the only collective is
 the histogram ``psum`` (tiny: 6x256 i64) — everything else is embarrassingly
-parallel, which is exactly why this domain scales linearly over ICI+DCN.
+parallel, so the batch scales with the number of cards.
 
 The single-device ``qv_encode_step`` is also the compile-check entry point
 (see __graft_entry__.py).
@@ -33,7 +33,6 @@ from jax.sharding import PartitionSpec as P
 from jax import shard_map
 
 from ..ops import bitstream_jax as bj
-from ..utils.dispatch import pallas_ok
 from .mesh import DATA_AXIS
 
 
@@ -51,9 +50,9 @@ def null_run_luts() -> np.ndarray:
 # single-device steps (jittable; vmapped over channels)
 # ---------------------------------------------------------------------------
 
-@functools.partial(jax.jit, static_argnames=("run_on", "run_tokens"))
+@functools.partial(jax.jit, static_argnames=("run_on",))
 def qv_encode_step(streams, lengths, sym_luts, run_luts, rchars, number_lut,
-                   run_on=(True, True), run_tokens: int | None = None):
+                   run_on=(True, True)):
     """Encode the five QV channels of a batch of entries on one device.
 
     streams:   (5, N, L) u8 — del, tag, ins, mrg, sub
@@ -65,17 +64,13 @@ def qv_encode_step(streams, lengths, sym_luts, run_luts, rchars, number_lut,
     run_on:    STATIC (del_has_run_scheme, sub_has_run_scheme) — a
                channel without a run scheme is encoded by the reference
                as a plain stream (QV.c:1393-1423 branches on delChar/
-               subChar), so routing it through the run kernel computes
+               subChar), so routing it through the run emissions computes
                identical bytes at 2x the slots plus the run-scan
                machinery.  Callers that know the coding pass the real
                flags; the default keeps both on (always correct).
-    run_tokens: STATIC optional upper bound on literals per row across
-               the run channels (host-counted); bounds the run kernel's
-               pack rectangle by real token count (QV.c:448-506 emits
-               per literal pair) instead of 2x the row width.
 
     Returns (words (4, N, M+1) u32, raw (4, N), out (4, N), dup, zext,
-             packed_tags (N, L//4) u8, tag_clens (N,), pstats, tbits).
+             packed_tags (N, L//4) u8, tag_clens (N,)).
     """
     # channel c (del/ins/mrg/sub LUT order) -> its stream plane
     chan_data = (streams[0], streams[2], streams[3], streams[4])
@@ -90,44 +85,6 @@ def qv_encode_step(streams, lengths, sym_luts, run_luts, rchars, number_lut,
             parts[c] = pv[j]
         return jnp.stack([parts[c] for c in range(4)])
 
-    from ..ops.emit_pallas import fused_ok
-
-    if pallas_ok() and fused_ok(streams.shape[2], any_backend=True):
-        # fused in-VMEM kernels: symbols -> packed words in one pass
-        # (width-capped: monster rows take the XLA emissions below)
-        from ..ops import emit_pallas as ep
-
-        pidx = jnp.array(plain_cs)
-        p_words, p_t, p_lg, p_pst = ep.encode_plain_pallas(
-            jnp.stack([chan_data[c] for c in plain_cs]), lengths,
-            sym_luts[pidx])
-        p_raw, p_out, p_dup, p_zext = bj.word_counts(p_t, p_lg)
-        if run_cs:
-            ridx = jnp.array(run_cs)
-            r_words, r_t, r_lg, r_pst = ep.encode_run_pallas(
-                jnp.stack([chan_data[c] for c in run_cs]), lengths,
-                sym_luts[ridx], run_luts[ridx], rchars[ridx],
-                max_tokens=run_tokens)
-            r_raw, r_out, r_dup, r_zext = bj.word_counts(r_t, r_lg)
-            pad = r_words.shape[2] - p_words.shape[2]
-            if pad >= 0:
-                p_words = jnp.pad(p_words, ((0, 0), (0, 0), (0, pad)))
-            else:       # token-compacted run rect narrower than plain
-                r_words = jnp.pad(r_words, ((0, 0), (0, 0), (0, -pad)))
-        else:
-            r_words = r_raw = r_out = r_dup = r_zext = r_pst = r_t = ()
-        words = mix(r_words, p_words)
-
-        if ep.fused_ok(streams.shape[2], any_backend=True):
-            packed, clens = ep.pack_tags_pallas(
-                streams[1], streams[0], lengths, rchars[0], number_lut)
-        else:
-            packed, clens = _pack_tags(streams[1], streams[0], lengths,
-                                       rchars[0], number_lut)
-        return (words, mix(r_raw, p_raw), mix(r_out, p_out),
-                mix(r_dup, p_dup), mix(r_zext, p_zext), packed, clens,
-                mix(r_pst, p_pst), mix(r_t, p_t))
-
     def one_run(d, sl, rl, rc):
         v, n, t, lg = bj.run_emissions(d, lengths, rc, sl, rl)
         raw, out, dup, zext = bj.word_counts(t, lg)
@@ -138,11 +95,10 @@ def qv_encode_step(streams, lengths, sym_luts, run_luts, rchars, number_lut,
         raw, out, dup, zext = bj.word_counts(t, lg)
         return v, n, raw, out, dup, zext
 
-    # pack outside the channel vmap: one kernel call per slot width, with
-    # the channels folded into the row axis (Pallas grid stays 1-D)
+    # pack outside the channel vmap, channels folded into the row axis
     def pack2(v2, n2):
         c, nn, m = v2.shape
-        w = bj.pack_words_any(v2.reshape(c * nn, m), n2.reshape(c * nn, m))
+        w = bj.pack_words(v2.reshape(c * nn, m), n2.reshape(c * nn, m))
         return w.reshape(c, nn, m + 1)
 
     p_v, p_n, p_raw, p_out, p_dup, p_zext = jax.vmap(
@@ -170,12 +126,7 @@ def qv_encode_step(streams, lengths, sym_luts, run_luts, rchars, number_lut,
     zext = mix(r_zext, p_zext)
 
     packed, clens = _pack_tags(streams[1], streams[0], lengths, rchars[0], number_lut)
-    # XLA path emits the classic dense format: zero stats plane (no
-    # region marker) + zero tbits keep the step's output arity uniform
-    n_rows = lengths.shape[0]
-    zst = jnp.zeros((4, n_rows, 128), jnp.int32)
-    zt = jnp.zeros((4, n_rows), jnp.int32)
-    return words, raw, out, dup, zext, packed, clens, zst, zt
+    return words, raw, out, dup, zext, packed, clens
 
 
 def _pack_tags(tag_rows, del_rows, lengths, del_char, number_lut):
@@ -198,28 +149,16 @@ def _pack_tags(tag_rows, del_rows, lengths, del_char, number_lut):
 
 
 def _histogram256(data, weights):
-    """256-bin histogram via one-hot matmul on the MXU.
+    """256-bin histogram of u8 ``data`` over the positions where
+    ``weights`` is nonzero (same total size), as an int32 scatter-add.
 
-    ones(1,K) @ one_hot(K,256) in bf16 with f32 accumulation counts exactly
-    (products are 0/1; sums < 2^24 per chunk); chunks reduce in int32.
-    """
-    flat = data.reshape(-1).astype(jnp.int32)
-    w = weights.reshape(-1)
-    chunk = 1 << 15
-    pad = (-flat.shape[0]) % chunk
-    if pad:
-        flat = jnp.concatenate([flat, jnp.full(pad, -1, jnp.int32)])
-        w = jnp.concatenate([w, jnp.zeros(pad, w.dtype)])
-    flat = jnp.where(w.astype(jnp.bool_), flat, -1).reshape(-1, chunk)
-    sym = jax.lax.broadcasted_iota(jnp.int32, (1, 256), 1)
-
-    def one(c):
-        oh = (c[:, None] == sym).astype(jnp.bfloat16)
-        ones = jnp.ones((1, chunk), jnp.bfloat16)
-        return jnp.dot(ones, oh, preferred_element_type=jnp.float32)[0]
-
-    hists = jax.lax.map(one, flat)
-    return hists.sum(axis=0).astype(jnp.int32)
+    Neighbouring positions add into different ones of 64 sub-histograms,
+    summed at the end, so concurrent updates rarely hit the same bin."""
+    idx = data.reshape(-1).astype(jnp.int32)
+    w = weights.reshape(-1).astype(jnp.bool_).astype(jnp.int32)
+    sub = jax.lax.broadcasted_iota(jnp.int32, idx.shape, 0) & 63
+    hist = jnp.zeros(64 * 256, jnp.int32).at[sub * 256 + idx].add(w)
+    return hist.reshape(64, 256).sum(axis=0)
 
 
 _I32_INF = np.int32(0x7FFFFFFF)
@@ -440,11 +379,29 @@ def sharded_decode_run(mesh, *, max_tokens: int):
                    P(DATA_AXIS), P(DATA_AXIS)))
 
 
+def sharded_lanes(mesh, fn, *args):
+    """``fn(*args)`` shard_map'd over the data axis, every argument and
+    output split on its leading axis of independent chains (the GPU chain
+    kernel's lanes).  Lanes are zero-padded to the device count (a chain
+    of length 0 costs no steps) and the padding is cut from the outputs.
+    """
+    m = len(args[0])
+    pad = (-m) % mesh.devices.size
+    # check_vma=False: the GPU chain kernel's pallas_call out_shapes carry
+    # no vma annotation
+    outs = shard_map(
+        fn, mesh=mesh, in_specs=(P(DATA_AXIS),) * len(args),
+        out_specs=P(DATA_AXIS), check_vma=False)(
+            *(jnp.asarray(np.pad(a, ((0, pad),) + ((0, 0),) * (a.ndim - 1)))
+              for a in args))
+    return tuple(o[:m] for o in outs)
+
+
 def sharded_decode_entry(mesh, *, max_len: int, max_tokens: int,
                          del_mode: str, sub_mode: str, subw: int,
                          lmax: int, chan_l2: tuple | None = None,
                          max_sym: int | None = None,
-                         spec: tuple | None = None):
+                         kernel: str | None = None):
     """shard_map'd fused five-channel entry decode (single coding):
     tables replicated, the per-channel word rectangles and the chains
     sharded over the data axis (ops/decode2)."""
@@ -457,10 +414,10 @@ def sharded_decode_entry(mesh, *, max_len: int, max_tokens: int,
             sids, f1, f2, types, del_char, sub_char,
             max_len=max_len, max_tokens=max_tokens, del_mode=del_mode,
             sub_mode=sub_mode, subw=subw, lmax=lmax, chan_l2=chan_l2,
-            max_sym=max_sym, spec=spec)
+            max_sym=max_sym, kernel=kernel)
 
-    # check_vma=False: the per-shard body may dispatch Pallas conveyor
-    # kernels, whose pallas_call out_shapes carry no vma annotation
+    # check_vma=False: the per-shard body may run the GPU chain kernel,
+    # whose pallas_call out_shapes carry no vma annotation
     return shard_map(
         step, mesh=mesh,
         in_specs=(P(DATA_AXIS, None), P(DATA_AXIS, None),
@@ -474,7 +431,7 @@ def sharded_decode_entry_seg(mesh, *, seg: int, s_per: int, max_len: int,
                              max_tokens: int, del_mode: str, sub_mode: str,
                              subw: int, lmax: int,
                              chan_l2: tuple | None = None,
-                             spec: tuple | None = None):
+                             kernel: str | None = None):
     """shard_map'd checkpoint-segmented entry decode (single coding).
 
     Segments shard exactly like reads: rows are segment-major
@@ -495,12 +452,12 @@ def sharded_decode_entry_seg(mesh, *, seg: int, s_per: int, max_len: int,
             seg_rlens, pos0, carr, sids, f1, f2, types, del_char,
             sub_char, seg=seg, s_per=s_per, max_len=max_len,
             max_tokens=max_tokens, del_mode=del_mode, sub_mode=sub_mode,
-            subw=subw, lmax=lmax, chan_l2=chan_l2, spec=spec)
+            subw=subw, lmax=lmax, chan_l2=chan_l2, kernel=kernel)
 
     # tag_in is (N, TB) packed bytes in plain-del mode and (NS, Tt)
     # per-segment codes in run-del mode — both shard on axis 0.
-    # check_vma=False: the per-shard body may dispatch Pallas conveyor
-    # kernels, whose pallas_call out_shapes carry no vma annotation
+    # check_vma=False: the per-shard body may run the GPU chain kernel,
+    # whose pallas_call out_shapes carry no vma annotation
     return shard_map(
         step, mesh=mesh,
         in_specs=(P(DATA_AXIS, None), P(DATA_AXIS, None),
@@ -523,8 +480,7 @@ def sharded_qv_encode(mesh, run_on=(True, True)):
                   P(), P(), P(), P()),
         out_specs=(P(None, DATA_AXIS, None), P(None, DATA_AXIS),
                    P(None, DATA_AXIS), P(None, DATA_AXIS), P(None, DATA_AXIS),
-                   P(DATA_AXIS, None), P(DATA_AXIS),
-                   P(None, DATA_AXIS, None), P(None, DATA_AXIS)))
+                   P(DATA_AXIS, None), P(DATA_AXIS)))
 
 
 def sharded_twobit_encode(mesh, alphabet: str | None = "base"):

@@ -252,7 +252,7 @@ def test_load_subread(tmp_path):
 
 
 def test_load_all_qventries_batch(tmp_path):
-    """TPU batch QV decode must match the per-entry loader exactly."""
+    """Batch device QV decode must match the per-entry loader exactly."""
     rc, recs = _build_db(tmp_path, n_reads=9, quiver=True, seed=11)
     assert rc == 0
     from dextractor_tpu.db import open_db

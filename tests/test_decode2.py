@@ -1,10 +1,10 @@
-"""Gather-free decode (ops/decode2) — routing primitives and path parity.
+"""Batched decode (ops/decode2) — routing primitives and path parity.
 
 The fused v2 decoder itself is covered end-to-end by the raw-container
 roundtrip tests in test_qv_codec.py (decode_dexqv_to_quiva(device=True)
 routes through it); here we pin the routing-network primitives against
-reference scatters and force the TPU-style one-hot/masked-reduce path
-(which CPU runs otherwise bypass via plain gathers) through a full
+reference scatters and force the GPU path (the chain kernel, in
+interpret mode; CPU runs otherwise take the XLA chains) through a full
 container roundtrip.
 """
 
@@ -80,18 +80,14 @@ def test_expand_runs2_matches_numpy():
 
 
 def test_forced_onehot_path_roundtrip(monkeypatch):
-    """The TPU-style masked-reduce/one-hot path (skipped on CPU by
+    """The accelerator path (the GPU chain kernel, skipped on CPU by
     default) must decode byte-identically too."""
     from dextractor_tpu.codecs.qv_codec import (
         encode_quiva_to_dexqv, decode_dexqv_to_quiva)
+    from dextractor_tpu.utils import dispatch
 
     rng = np.random.default_rng(19)
     quiva = make_quiva(rng, n_reads=10, min_len=0, max_len=300)
     enc = encode_quiva_to_dexqv(quiva)
-    monkeypatch.setattr(d2, "_FORCE_OH", True)
-    jax.clear_caches()                 # drop CPU-path traces
-    try:
-        assert decode_dexqv_to_quiva(enc, device=True) == quiva
-    finally:
-        monkeypatch.undo()
-        jax.clear_caches()
+    monkeypatch.setattr(dispatch, "chain_kernel", lambda: "interpret")
+    assert decode_dexqv_to_quiva(enc, device=True) == quiva

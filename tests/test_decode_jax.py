@@ -1,4 +1,4 @@
-"""TPU batch decoder vs the NumPy bitstream oracle."""
+"""Batched XLA decoder vs the NumPy bitstream oracle."""
 
 import numpy as np
 import jax.numpy as jnp

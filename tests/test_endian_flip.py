@@ -16,6 +16,7 @@ original text byte-for-byte.
 import struct
 
 import numpy as np
+import pytest
 
 from conftest import make_fasta, make_arrow, make_quiva
 
@@ -196,4 +197,18 @@ def test_dexqv_flip_decode_no_delchar():
     quiva = make_quiva(rng, n_reads=8, min_len=1, max_len=200,
                        del_run=False)
     flipped = _flipped_dexqv(quiva)
+    assert decode_dexqv_to_quiva(flipped) == quiva
+
+
+def test_dexqv_flip_device_decode_raises():
+    """device=True never decodes on the host: a flipped container, which
+    only the host walkers read, raises instead; the default policy sends
+    it to the host walker."""
+    from dextractor_tpu.utils.errors import FormatError
+
+    rng = np.random.default_rng(26)
+    quiva = make_quiva(rng, n_reads=4, min_len=1, max_len=100)
+    flipped = _flipped_dexqv(quiva)
+    with pytest.raises(FormatError, match="device=False"):
+        decode_dexqv_to_quiva(flipped, device=True)
     assert decode_dexqv_to_quiva(flipped) == quiva

@@ -54,7 +54,7 @@ def test_full_pipeline(tmp_path, ref_tools):
         assert db.nreads == 10
         db.open_qvs()
 
-        # 5. batched TPU decode equals the instrument data
+        # 5. batched device decode equals the instrument data
         streams, lengths = db.load_all_qventries(ascii_mode=1)
         off = np.zeros(db.nreads + 1, np.int64)
         np.cumsum(lengths, out=off[1:])

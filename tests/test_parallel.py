@@ -273,12 +273,12 @@ def test_sharded_twobit_matches_single_device():
 
 
 def test_sharded_conveyor_decode_matches_single(monkeypatch):
-    """The Pallas conveyor (interpret mode on CPU) must produce identical
-    decode output per shard under shard_map as single-device — the
-    round-2 verdict found sharded decode silently dropped to the ~8x
-    slower XLA chains (qv_batch gate).  Covers both the raw-container
-    fused path and the multi-coding DB path."""
+    """The GPU chain kernel (interpret mode on CPU) must produce identical
+    decode output per shard under shard_map as single-device.  Covers the
+    raw-container fused path; the next test covers the multi-coding DB
+    path."""
     from conftest import make_quiva
+    from dextractor_tpu.utils import dispatch
     from dextractor_tpu.codecs.qv_codec import (
         encode_quiva_to_dexqv, decode_dexqv_to_quiva)
 
@@ -286,11 +286,7 @@ def test_sharded_conveyor_decode_matches_single(monkeypatch):
     quiva = make_quiva(rng, n_reads=17, min_len=5, max_len=120)
     enc = encode_quiva_to_dexqv(quiva, device=False)
 
-    monkeypatch.setenv("DXT_CONVEYOR_INTERPRET", "1")
-    # legacy per-symbol path: pair-step interpret traces cost ~3x the
-    # emulation time and the pair x shard_map combination is covered by
-    # test_sharded_seg_decode_matches_single
-    monkeypatch.setenv("DXT_PAIR", "0")
+    monkeypatch.setattr(dispatch, "chain_kernel", lambda: "interpret")
     mesh = make_mesh(8)
     single = decode_dexqv_to_quiva(enc, device=True)
     sharded = decode_dexqv_to_quiva(enc, device=True, mesh=mesh)
@@ -300,8 +296,10 @@ def test_sharded_conveyor_decode_matches_single(monkeypatch):
 
 def test_sharded_conveyor_db_decode_matches_single(monkeypatch):
     """Multi-coding batch decode (qv_batch.batch_decode_entries) through
-    the shard_map'd conveyor — two codings, mixed schemes per read."""
+    the shard_map'd GPU chain kernel — two codings, mixed schemes per
+    read — equal to single-device and to the XLA chains."""
     from conftest import make_quiva
+    from dextractor_tpu.utils import dispatch
     from dextractor_tpu.formats import dexqv as dqf
     from dextractor_tpu.codecs.qv_codec import (
         encode_quiva_to_dexqv, _index_native)
@@ -331,9 +329,11 @@ def test_sharded_conveyor_db_decode_matches_single(monkeypatch):
     table = np.concatenate([np.zeros(len(parts[0][1]), np.int64),
                             np.ones(len(parts[1][1]), np.int64)])
 
-    monkeypatch.setenv("DXT_CONVEYOR_INTERPRET", "1")
-    monkeypatch.setenv("DXT_PAIR", "0")   # see decode_matches_single
+    rows_xla, _ = batch_decode_entries(buf, starts, rlens, codings, table)
+    monkeypatch.setattr(dispatch, "chain_kernel", lambda: "interpret")
     rows_single, _ = batch_decode_entries(buf, starts, rlens, codings, table)
+    np.testing.assert_array_equal(np.asarray(rows_single),
+                                  np.asarray(rows_xla))
     mesh = make_mesh(8)
     rows_sharded, _ = batch_decode_entries(buf, starts, rlens, codings,
                                            table, mesh=mesh)
@@ -345,10 +345,11 @@ def test_sharded_seg_decode_matches_single(monkeypatch):
     """Checkpoint-segmented decode under shard_map: segments shard like
     reads (round-3 left fused_decode_entries_seg single-device — under a
     mesh long reads silently fell back to per-read chains).  Small
-    seg=256 so a modest batch has true multi-segment reads; interpret
-    conveyor on the CPU mesh; read count NOT a device multiple so the
+    seg=256 so a modest batch has true multi-segment reads; the GPU
+    chain kernel in interpret mode on the CPU mesh; read count NOT a device multiple so the
     dead-read padding path is exercised."""
     from conftest import make_quiva
+    from dextractor_tpu.utils import dispatch
     from dextractor_tpu.formats import dexqv as dqf
     from dextractor_tpu.codecs.qv_codec import (
         encode_quiva_to_dexqv, _index_native, _index_checkpoints)
@@ -366,10 +367,7 @@ def test_sharded_seg_decode_matches_single(monkeypatch):
     ck = _index_checkpoints(enc, coding, coff, True, idx, seg=256)
     assert ck is not None
     buf = np.frombuffer(enc, np.uint8)
-    monkeypatch.setenv("DXT_CONVEYOR_INTERPRET", "1")
-    # keep ONE shard_map test on the pair-speculation path (default off
-    # on perf grounds, but the code must not rot)
-    monkeypatch.setenv("DXT_PAIR", "1")
+    monkeypatch.setattr(dispatch, "chain_kernel", lambda: "interpret")
     single = np.asarray(fused_decode_entries_seg(
         buf, eoffs, elens.astype(np.int32), coffs, ntoks, coding, ck))
     mesh = make_mesh(8)

@@ -158,7 +158,7 @@ def test_native_and_python_decode_agree(ref_tools, tmp_path):
 
 
 def test_raw_container_device_decode():
-    """Raw .dexqv through the TPU batch decoder (native lens-only walk for
+    """Raw .dexqv through the batch device decoder (native lens-only walk for
     boundaries + parallel stream chains) must equal the sequential walk."""
     rng = np.random.default_rng(55)
     quiva = make_quiva(rng, n_reads=24, min_len=0, max_len=500)
@@ -472,7 +472,8 @@ def test_seg_decode_runs_and_carries_cross_boundaries():
 
 def test_seg_decode_conveyor_interpret(monkeypatch):
     """The segment chains (pos0 mid-bit resume + run carries) through the
-    actual Pallas conveyor kernels in interpret mode."""
+    GPU chain kernel in interpret mode."""
+    from dextractor_tpu.utils import dispatch
     from dextractor_tpu.codecs.qv_codec import (
         encode_quiva_to_dexqv, _index_native, _index_checkpoints)
     from dextractor_tpu.formats import dexqv as dqf
@@ -492,8 +493,22 @@ def test_seg_decode_conveyor_interpret(monkeypatch):
     buf = np.frombuffer(enc, np.uint8)
     ref = np.asarray(fused_decode_entries(
         buf, eoffs, elens.astype(np.int32), coffs, ntoks, coding))
-    monkeypatch.setenv("DXT_CONVEYOR_INTERPRET", "1")
+    monkeypatch.setattr(dispatch, "chain_kernel", lambda: "interpret")
     got = fused_decode_entries_seg(
         buf, eoffs, elens.astype(np.int32), coffs, ntoks, coding, ck)
     w = min(ref.shape[2], got.shape[2])
     np.testing.assert_array_equal(got[:, :, :w], ref[:, :, :w])
+
+
+def test_device_decode_without_native_walker_raises(monkeypatch):
+    """device=True never decodes on the host: without the native index
+    walk the device path raises instead of falling back."""
+    from dextractor_tpu.codecs import qv_codec
+
+    rng = np.random.default_rng(47)
+    quiva = make_quiva(rng, n_reads=3, min_len=1, max_len=50)
+    enc = qv_codec.encode_quiva_to_dexqv(quiva, device=False)
+    monkeypatch.setattr(qv_codec, "_index_native", lambda *a, **k: None)
+    with pytest.raises(RuntimeError, match="native index walker"):
+        qv_codec.decode_dexqv_to_quiva(enc, device=True)
+    assert qv_codec.decode_dexqv_to_quiva(enc, device=False) == quiva
